@@ -2,10 +2,11 @@
 
 Each ``csrc/<name>.cu`` exposes a plain ``extern "C"`` entry point and
 compiles on first use into a shared library under ``build/repro_torch/``
-at the root of the checkout, named by a hash of its source, so an
-edited source rebuilds and an unchanged one loads at once. A plain C
-interface builds in seconds, where an extension that includes
-PyTorch's headers takes minutes. Nothing here runs at import time.
+at the root of the checkout, named by a hash of its source and its
+flags, so an edited source rebuilds and an unchanged one loads at
+once. A plain C interface builds in seconds, where an extension that
+includes PyTorch's headers takes minutes. Nothing here runs at import
+time.
 """
 from __future__ import annotations
 
@@ -16,14 +17,23 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Tuple
 
 CSRC = Path(__file__).resolve().with_name("csrc")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-KERNELS = ("schedule_step",)
+KERNELS = ("schedule_step", "flash_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
-              "-fmad=false", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v")
+              "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# Per-kernel flags on top of NVCC_FLAGS. schedule_step is bit-exact with
+# its plain version only if no multiply-add is contracted.
+KERNEL_FLAGS: Dict[str, Tuple[str, ...]] = {
+    "schedule_step": ("-fmad=false",),
+    "flash_attention": (),
+}
+
+# Kernel launches by kernel name, raised by each CUDA wrapper after a
+# successful launch and nowhere else (``ops.LAUNCHES`` is this dict).
+LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
@@ -36,10 +46,15 @@ def nvcc() -> str:
     return path
 
 
+def flags(name: str) -> Tuple[str, ...]:
+    return NVCC_FLAGS + KERNEL_FLAGS[name]
+
+
 def library_path(name: str) -> Path:
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    h = hashlib.sha256(src.read_bytes())
+    h.update(" ".join(flags(name)).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def build_all(names: Iterable[str] = KERNELS) -> Dict[str, dict]:
@@ -55,7 +70,7 @@ def build_all(names: Iterable[str] = KERNELS) -> Dict[str, dict]:
             report[name] = {"seconds": 0.0, "log": "", "cached": True}
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [nvcc(), *flags(name), "-o", str(tmp), str(CSRC / f"{name}.cu")]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, text=True)
         started[name] = (proc, tmp, out, time.perf_counter())

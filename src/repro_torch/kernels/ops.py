@@ -4,24 +4,31 @@ Dispatch is by device: a CUDA tensor goes to the hand-written kernel,
 a CPU tensor to its plain PyTorch version. There is no fallback from
 the kernel to the plain version.
 
-``LAUNCHES`` counts kernel launches per kernel name (a plain integer,
-raised by each CUDA wrapper once its launch has succeeded) so a run can
-show that its main path went through the kernel. When ``KERNEL_EVENTS``
-is a list, each launch also appends the CUDA events that the wrapper
-records around its kernels (timing instrumentation; off by default).
+``LAUNCHES`` counts kernel launches per kernel name, one dict over all
+kernels (a plain integer each, raised by each CUDA wrapper once its
+launch has succeeded) so a run can show that its main path went through
+the kernel. When ``KERNEL_EVENTS`` is a list, each ``schedule_step``
+launch also appends the CUDA events that the wrapper records around its
+kernels (timing instrumentation; off by default).
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.configs.base import PAPER_S
+from repro_torch.kernels import build
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import schedule_step as _ss
 
-LAUNCHES = _ss.LAUNCHES
+LAUNCHES = build.LAUNCHES
 KERNEL_EVENTS = None
-# Private test hook: True sends CUDA tensors to the plain version too,
-# so a run on the card can be held against its own plain path.
+# Private test hook: True sends CUDA tensors of ``schedule_step`` to the
+# plain version too, and ``models.attention.attend`` to its plain path
+# (the one place attention tests it), so a run on the card can be held
+# against its own plain path.
 _FORCE_PLAIN = False
+# the JAX flash wrapper's default block, which sets its alignment rule
+_JAX_BLOCK = 128
 
 
 def normalizers(demand, gp, cand, node_cap):
@@ -54,3 +61,25 @@ def schedule_step(demand, gp, width, queue_key, assign, free,
     if demand.device.type != "cuda" or _FORCE_PLAIN:
         return _ss.schedule_step_torch(*args)
     return _ss.schedule_step_cuda(*args, events=KERNEL_EVENTS)
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                    softcap: float = 0.0):
+    """GQA flash attention, q (B, Sq, H, hd), k/v (B, Skv, KV, hd).
+
+    The contract of the JAX wrapper: query i sits at absolute position
+    Skv - Sq + i (the queries are the last Sq positions). The JAX
+    wrapper pads Sq and Skv to multiples of its 128-row blocks and
+    relies on the causal mask to hide the padded keys; the CUDA kernel
+    masks the ragged edge itself instead, and the plain version needs
+    no blocks. As there, non-causal attention over lengths that are not
+    multiples of 128 raises ``ValueError``."""
+    Sq, Skv = q.shape[1], k.shape[1]
+    if not causal and (Sq % _JAX_BLOCK or Skv % _JAX_BLOCK):
+        raise ValueError("non-causal attention requires block-aligned "
+                         "Sq and Skv (padded keys would be attended)")
+    if q.device.type != "cuda":
+        return _fa.flash_attention_torch(q, k, v, causal=causal,
+                                         window=window, softcap=softcap)
+    return _fa.flash_attention_cuda(q, k, v, causal=causal, window=window,
+                                    softcap=softcap)

@@ -34,10 +34,6 @@ _INF = float("inf")
 _TILE = 256          # jobs per block of the tile kernel (kTile)
 _MAX_NODES = 7680    # 6*M floats + 43 KB staging in 227 KB of smem
 
-# Kernel launches by kernel name, raised by the CUDA wrapper after each
-# successful launch (``ops.LAUNCHES`` is this dict).
-LAUNCHES = {"schedule_step": 0}
-
 
 class SchedulePass(NamedTuple):
     """Outputs of one fused schedule pass (see module docstring)."""
@@ -224,7 +220,7 @@ def schedule_step_cuda(demand, gp, width, queue_key, assign, free,
     if err != 0:
         raise RuntimeError(f"schedule_step kernel launch failed with CUDA "
                            f"error {err}")
-    LAUNCHES["schedule_step"] += 1
+    build.LAUNCHES["schedule_step"] += 1
     ps = SchedulePass(scores, fits, fit_now, fit_pend, out[:, 0], out[:, 1],
                       out[:, 2], out[:, 3])
     return ps if batched else SchedulePass(*(x[0] for x in ps))

@@ -1,0 +1,301 @@
+"""Dense decoder-only LM (command-r, stablelm, nemotron-4, mistral-large).
+
+Counterpart of ``repro.models.dense``: a pre-norm GQA transformer with
+RoPE and a gated or plain MLP. :class:`DenseLM` keeps one submodule per
+layer (its attention and MLP leaves in two children) with the JAX
+package's per-layer weight layouts (``wq`` (D, H, hd), ``wk``/``wv``
+(D, KV, hd), ``wo`` (H, hd, D), ``w_up``/``w_gate`` (D, F), ``w_down``
+(F, D)); the JAX package stacks them on a leading layer axis and scans.
+The functions take the module where the JAX ones take the parameter
+tree.
+
+Not ported: the sharding ``constrain`` calls (they do nothing on one
+card), and ``loss_fn``/``_maybe_remat``, which come with the training
+slice. The parameters carry no gradients; serving runs under
+``torch.no_grad``.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+from torch import nn
+
+from repro_torch import device as _device
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import attention, common
+from repro_torch.models.common import ParamDef
+
+
+# ---------------------------------------------------------------------------
+# Parameter definitions (the JAX package's stacked shapes)
+# ---------------------------------------------------------------------------
+
+def attn_defs(cfg: ModelConfig, L: int) -> dict:
+    D, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    return {
+        "attn_norm": ParamDef((L, D), ("layers", "embed"), init="zeros"),
+        "wq": ParamDef((L, D, H, hd), ("layers", "embed", "heads", "head_dim")),
+        "wk": ParamDef((L, D, KV, hd), ("layers", "embed", "kv", "head_dim")),
+        "wv": ParamDef((L, D, KV, hd), ("layers", "embed", "kv", "head_dim")),
+        "wo": ParamDef((L, H, hd, D), ("layers", "heads", "head_dim", "embed")),
+    }
+
+
+def mlp_defs(cfg: ModelConfig, L: int) -> dict:
+    D, F = cfg.d_model, cfg.d_ff
+    defs = {
+        "mlp_norm": ParamDef((L, D), ("layers", "embed"), init="zeros"),
+        "w_up": ParamDef((L, D, F), ("layers", "embed", "mlp")),
+        "w_down": ParamDef((L, F, D), ("layers", "mlp", "embed")),
+    }
+    if cfg.gated_mlp:
+        defs["w_gate"] = ParamDef((L, D, F), ("layers", "embed", "mlp"))
+    return defs
+
+
+def param_defs(cfg: ModelConfig) -> dict:
+    L, D, V = cfg.n_layers, cfg.d_model, cfg.vocab
+    defs = {
+        "embed": ParamDef((V, D), ("vocab", "embed"), scale=0.02),
+        "final_norm": ParamDef((D,), ("embed",), init="zeros"),
+        "layers": {**attn_defs(cfg, L), **mlp_defs(cfg, L)},
+    }
+    if not cfg.tie_embeddings:
+        defs["out_head"] = ParamDef((D, V), ("embed", "vocab"))
+    return defs
+
+
+# ---------------------------------------------------------------------------
+# Modules
+# ---------------------------------------------------------------------------
+
+class _Leaves(nn.Module):
+    """Parameters named after ParamDefs, one layer's slice of each."""
+
+    def __init__(self, defs: dict, dtype: torch.dtype, device, stacked: bool):
+        super().__init__()
+        for name, d in defs.items():
+            shape = d.shape[1:] if stacked else d.shape
+            dt = common.torch_dtype(d.dtype) if d.dtype else dtype
+            self.register_parameter(name, nn.Parameter(
+                torch.empty(shape, dtype=dt, device=device),
+                requires_grad=False))
+
+
+class DenseAttention(_Leaves):
+    """One layer's attention sublayer: attn_norm, wq, wk, wv, wo."""
+
+    def __init__(self, cfg: ModelConfig, dtype, device):
+        super().__init__(attn_defs(cfg, 1), dtype, device, stacked=True)
+        self.cfg = cfg
+
+    def _qkv(self, x: torch.Tensor):
+        cfg = self.cfg
+        B, S, D = x.shape
+        h = common.rms_norm(x, self.attn_norm, cfg.norm_eps)
+        q = (h @ self.wq.reshape(D, -1)).reshape(B, S, cfg.n_heads, -1)
+        k = (h @ self.wk.reshape(D, -1)).reshape(B, S, cfg.n_kv_heads, -1)
+        v = (h @ self.wv.reshape(D, -1)).reshape(B, S, cfg.n_kv_heads, -1)
+        return q, k, v
+
+    def _out(self, o: torch.Tensor) -> torch.Tensor:
+        B, S = o.shape[:2]
+        return o.reshape(B, S, -1) @ self.wo.reshape(-1, self.cfg.d_model)
+
+    def forward(self, x: torch.Tensor, positions: torch.Tensor,
+                mask: torch.Tensor, window: Optional[int] = None
+                ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
+        """Full-sequence attention. x (B, S, D). Returns (out, (k, v));
+        ``window`` defaults to ``cfg.window``."""
+        cfg = self.cfg
+        window = cfg.window if window is None else window
+        q, k, v = self._qkv(x)
+        q = common.rope(q, positions, cfg.rope_theta)
+        k = common.rope(k, positions, cfg.rope_theta)
+        o = attention.attend(q, k, v, mask=mask, causal=True, window=window)
+        return self._out(o), (k, v)
+
+    def decode(self, x: torch.Tensor, k_cache: torch.Tensor,
+               v_cache: torch.Tensor, pos: int, slot: int,
+               mask: torch.Tensor) -> torch.Tensor:
+        """One-token attention. x (B, 1, D); the layer caches (B, S, KV,
+        hd) get this token's k/v at ``slot`` in place."""
+        cfg = self.cfg
+        q, k, v = self._qkv(x)
+        posv = torch.full((1,), pos, dtype=torch.int32, device=x.device)
+        q = common.rope(q, posv, cfg.rope_theta)
+        k = common.rope(k, posv, cfg.rope_theta)
+        attention.update_layer_cache(k_cache, v_cache, k, v, slot)
+        return self._out(attention.attend(q, k_cache, v_cache, mask=mask))
+
+
+class DenseMLP(_Leaves):
+    """One layer's MLP sublayer: mlp_norm, w_up, (w_gate), w_down."""
+
+    def __init__(self, cfg: ModelConfig, dtype, device):
+        super().__init__(mlp_defs(cfg, 1), dtype, device, stacked=True)
+        self.cfg = cfg
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
+        h = common.rms_norm(x, self.mlp_norm, cfg.norm_eps)
+        up = h @ self.w_up
+        if cfg.gated_mlp:
+            act = common.activate(h @ self.w_gate, cfg.activation) * up
+        else:
+            act = common.activate(up, cfg.activation)
+        return act @ self.w_down
+
+
+class DenseLayer(nn.Module):
+    def __init__(self, cfg: ModelConfig, dtype, device):
+        super().__init__()
+        self.attn = DenseAttention(cfg, dtype, device)
+        self.mlp = DenseMLP(cfg, dtype, device)
+
+    def forward(self, x, positions, mask):
+        a, kv = self.attn(x, positions, mask)
+        x = x + a
+        return x + self.mlp(x), kv
+
+
+class DenseLM(nn.Module):
+    """embed (V, D), final_norm (D,), out_head (D, V) unless tied, and
+    ``layers``: one :class:`DenseLayer` per layer. Allocated empty;
+    :func:`init` or ``convert.params_from_numpy`` fills it."""
+
+    def __init__(self, cfg: ModelConfig, device=None):
+        super().__init__()
+        self.cfg = cfg
+        dtype = common.torch_dtype(cfg.dtype)
+        top = {k: d for k, d in param_defs(cfg).items() if k != "layers"}
+        self.top = _Leaves(top, dtype, device, stacked=False)
+        self.layers = nn.ModuleList(DenseLayer(cfg, dtype, device)
+                                    for _ in range(cfg.n_layers))
+
+    def leaf(self, name: str, layer: Optional[int] = None) -> nn.Parameter:
+        """The parameter of ParamDef ``name``; ``layer`` picks the slice
+        of a stacked (per-layer) leaf."""
+        if layer is None:
+            return getattr(self.top, name)
+        lm = self.layers[layer]
+        return getattr(lm.attn if hasattr(lm.attn, name) else lm.mlp, name)
+
+
+@torch.no_grad()
+def init(cfg: ModelConfig, seed: int = 0, *, device=None) -> DenseLM:
+    """Random parameters with the JAX package's initializers (normal
+    with scale 1/sqrt(fan_in) of the stacked shape, zeros for the norm
+    gains, 0.02 for the embedding), drawn leaf by leaf (one layer's
+    slice at a time) from a ``torch.Generator`` on ``device`` seeded
+    with ``seed``. The numbers differ from ``jax.random``'s."""
+    dev = _device.resolve(device)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    model = DenseLM(cfg, device=dev)
+    for name, d in param_defs(cfg).items():
+        if name == "layers":
+            for lname, ld in d.items():
+                for li in range(cfg.n_layers):
+                    common.init_(model.leaf(lname, li), ld, gen)
+        else:
+            common.init_(model.leaf(name), d, gen)
+    return model
+
+
+# ---------------------------------------------------------------------------
+# Public model API
+# ---------------------------------------------------------------------------
+
+def _embed(cfg: ModelConfig, model: DenseLM,
+           tokens: torch.Tensor) -> torch.Tensor:
+    return model.top.embed[tokens].to(common.torch_dtype(cfg.dtype))
+
+
+def unembed(cfg: ModelConfig, model: DenseLM, x: torch.Tensor) -> torch.Tensor:
+    x = common.rms_norm(x, model.top.final_norm, cfg.norm_eps)
+    if cfg.tie_embeddings:
+        logits = x @ model.top.embed.t()
+    else:
+        logits = x @ model.top.out_head
+    return common.softcap(logits, cfg.logit_softcap)
+
+
+@torch.no_grad()
+def forward(cfg: ModelConfig, model: DenseLM,
+            tokens: torch.Tensor) -> torch.Tensor:
+    """Scoring forward. tokens (B, S) -> logits (B, S, V)."""
+    S = tokens.shape[1]
+    x = _embed(cfg, model, tokens)
+    positions = torch.arange(S, device=x.device)
+    mask = common.causal_mask(S, S, window=cfg.window, device=x.device)
+    for layer in model.layers:
+        x, _ = layer(x, positions, mask)
+    return unembed(cfg, model, x)
+
+
+@torch.no_grad()
+def prefill(cfg: ModelConfig, model: DenseLM, tokens: torch.Tensor,
+            pad_to: int = 0) -> Tuple[torch.Tensor, dict]:
+    """Build a KV cache from a prompt. Returns (last-token logits, cache).
+
+    ``pad_to`` reserves cache room for subsequent decode steps. Each
+    layer's k/v go straight into the cache as they are computed."""
+    B, S = tokens.shape
+    x = _embed(cfg, model, tokens)
+    positions = torch.arange(S, device=x.device)
+    mask = common.causal_mask(S, S, window=cfg.window, device=x.device)
+    cache = attention.init_cache(cfg.n_layers, B, max(pad_to, S),
+                                 cfg.n_kv_heads, cfg.head_dim, x.dtype,
+                                 device=x.device)
+    for li, layer in enumerate(model.layers):
+        x, (k, v) = layer(x, positions, mask)
+        cache["k"][li, :, :S] = k
+        cache["v"][li, :, :S] = v
+    cache["kv_pos"][:S] = torch.arange(S, dtype=torch.int32, device=x.device)
+    cache["next_pos"] = S
+    return unembed(cfg, model, x[:, -1:]), cache
+
+
+def init_decode_cache(cfg: ModelConfig, batch: int, context_len: int, *,
+                      device=None) -> dict:
+    """Cache for serve_step. Ring buffer of the window size when the arch
+    has sliding-window attention; else full ``context_len``.
+
+    ``cfg.decode_window`` (the long-context variant) is applied by the
+    launcher via ``cfg.replace(window=cfg.decode_window)``; this module
+    honours ``cfg.window``."""
+    w = min(cfg.window, context_len) if cfg.window > 0 else 0
+    cache_len = w if w > 0 else context_len
+    return attention.init_cache(cfg.n_layers, batch, cache_len,
+                                cfg.n_kv_heads, cfg.head_dim,
+                                common.torch_dtype(cfg.dtype),
+                                device=_device.resolve(device))
+
+
+@torch.no_grad()
+def serve_step(cfg: ModelConfig, model: DenseLM, cache: dict,
+               tokens: torch.Tensor) -> Tuple[torch.Tensor, dict]:
+    """Decode ONE token. tokens (B, 1) -> (logits (B, 1, V), cache).
+
+    The cache is updated in place and returned."""
+    x = _embed(cfg, model, tokens)
+    pos = cache["next_pos"]
+    cache_len = cache["k"].shape[2]
+    w = cfg.window   # 0 = full attention (see init_decode_cache docstring)
+    # Ring buffer only when the cache was allocated at exactly the window
+    # size (init_decode_cache); a prefill-padded full cache writes at pos.
+    ring = w > 0 and cache_len == w
+    slot = pos % cache_len if ring else pos
+    if not 0 <= slot < cache_len:
+        raise IndexError(f"decode position {pos} outside a cache of "
+                         f"{cache_len} slots (the cache is full)")
+    cache["kv_pos"][slot] = pos        # the current token attends to itself
+    mask = attention.decode_mask(pos, cache["kv_pos"], window=w)
+    for li, layer in enumerate(model.layers):
+        x = x + layer.attn.decode(x, cache["k"][li], cache["v"][li], pos,
+                                  slot, mask)
+        x = x + layer.mlp(x)
+    cache["next_pos"] = pos + 1
+    return unembed(cfg, model, x), cache

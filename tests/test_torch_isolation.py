@@ -94,3 +94,9 @@ def test_entry_points_raise_without_cuda(monkeypatch):
                       gp=np.zeros(1, np.int64))
     with pytest.raises(RuntimeError, match="device='cpu'"):
         sim_torch.jobs_from_jobset(js)
+    from repro_torch import configs, models
+    from repro_torch.launch import serve
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve.main(["--arch", "stablelm-12b", "--smoke"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        models.init(configs.get_smoke_config("stablelm-12b"))
