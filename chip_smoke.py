@@ -69,6 +69,9 @@ SERVE_ARCH = "stablelm-12b"
 SERVE_BATCH, SERVE_PROMPT, SERVE_STEPS = 4, 2048, 32
 FLASH_MAIN_SHAPE = (SERVE_BATCH, SERVE_PROMPT, SERVE_PROMPT, 32, 8, 160,
                     True, 0, 0.0)
+# the recurrentgemma-9b prefill's local attention: B 4, Sq = Skv 4096,
+# H 16 over 1 KV head, hd 256, causal, window 2048 (the window path)
+FLASH_WINDOW_SHAPE = (SERVE_BATCH, 4096, 4096, 16, 1, 256, True, 2048, 0.0)
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 # bf16, scaled to the output: per row (one query and head), max|delta|
 # over max|plain|. The kernel and the plain version round p to bf16 at
@@ -408,7 +411,8 @@ def phase_flash_kernel(torch):
     scaled_dot_product_attention (a yardstick the port never calls)."""
     from repro_torch.kernels import flash_attention as fa
     dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-    cases = [(s, d) for s in FLASH_SHAPES + [FLASH_MAIN_SHAPE]
+    cases = [(s, d) for s in FLASH_SHAPES + [FLASH_MAIN_SHAPE,
+                                             FLASH_WINDOW_SHAPE]
              for d in dtypes]
     max_err, max_row_err = {}, 0.0
     for seed, (shape, dname) in enumerate(cases):
@@ -449,6 +453,8 @@ def phase_flash_kernel(torch):
     lib_err = float((sdpa().transpose(1, 2).float()
                      - fa.flash_attention_torch(q, k, v).float()).abs().max())
     bound, bound_by = flash_bound_ms(shape, 2)
+    del q, k, v, qt, kt, vt
+    window = flash_window_timing(torch, fa)
     result = {"name": "flash_attention", "route": "cuda",
               "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
               "replaces": "src/repro/kernels/flash_attention.py:123",
@@ -463,21 +469,250 @@ def phase_flash_kernel(torch):
                                   shape[:6]), dtype="bfloat16", causal=True),
           "library_call": "scaled_dot_product_attention(is_causal=True, "
                           "enable_gqa=True)",
-          "library_max_abs_err_vs_plain": lib_err, **result})
+          "library_max_abs_err_vs_plain": lib_err, "window_case": window,
+          **result})
+    result.update({f"window_{k}": window[k] for k in
+                   ("ms", "plain_ms", "bound_ms", "library_ms")})
+    return result
+
+
+def flash_window_timing(torch, fa):
+    """The flash kernel's window path at the recurrentgemma prefill
+    shape (bf16): its time, the plain version's, the bound, and
+    scaled_dot_product_attention with the same mask as a yardstick."""
+    shape = FLASH_WINDOW_SHAPE
+    window = shape[7]
+    q, k, v = flash_inputs(torch, shape, torch.bfloat16, 101)
+    ms = time_ms(torch, lambda: fa.flash_attention_cuda(q, k, v,
+                                                        window=window))
+    plain_ms = time_ms(torch, lambda: fa.flash_attention_torch(
+        q, k, v, window=window))
+    mask = fa._attention_mask(shape[1], shape[2], causal=True,
+                              window=window, device="cuda")
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    library_ms = time_ms(torch, lambda: torch.nn.functional
+                         .scaled_dot_product_attention(
+                             qt, kt, vt, attn_mask=mask, enable_gqa=True))
+    bound, bound_by = flash_bound_ms(shape, 2)
     del q, k, v, qt, kt, vt
+    free_cuda(torch)
+    return {"shape": dict(zip(("B", "Sq", "Skv", "H", "KV", "hd", "causal",
+                                "window"), shape[:8]), dtype="bfloat16"),
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": bound_by, "library_ms": library_ms,
+            "library_call": "scaled_dot_product_attention(attn_mask=window "
+                            "mask, enable_gqa=True)"}
+
+
+# ssd_chunk: the JAX suite's shapes (tests/test_kernels.py, TestSsdChunk-
+# Kernel and its ssd_scan case), a ragged and a multi-chunk case, each
+# in f32 and bf16, (B, L, H, P, N, groups); groups > 0 passes Bm/Cm as
+# an expand()ed view of that many groups (stride 0 across the heads of
+# a group, as ssd_scan passes them)
+SSD_SHAPES = [
+    (2, 256, 2, 64, 32, 0), (1, 512, 4, 64, 128, 0), (2, 128, 2, 32, 16, 0),
+    (1, 64, 2, 16, 8, 0),
+    (2, 300, 3, 24, 20, 0),          # ragged: a 44-row last chunk, P, N odd
+    (1, 100, 2, 40, 12, 1),          # one short chunk (Q = L = 100)
+    (1, 1024, 4, 64, 64, 1),         # 4 chunks, heads broadcast from 1 group
+]
+# the mamba2-1.3b prefill as ssd_scan hands it to the kernel: the
+# (B*c, q, H, .) view of B 4, L 2048 in chunks of 256, f32 operands,
+# Bm/Cm broadcast from one group
+SSM_ARCH = "mamba2-1.3b"
+SSD_MAIN_SHAPE = (4 * 2048 // 256, 256, 64, 64, 128, 1)
+SCAN_TOL = {"float32": 1e-4, "bfloat16": 5e-2}
+# lru_scan: the JAX suite's shapes (TestLruScan), each in f32 and bf16,
+# then the recurrentgemma-9b prefill shape, with and without h0, and a
+# ragged one, (B, L, R, h0)
+LRU_SHAPES = [(2, 256, 512, False), (2, 300, 130, True),
+              (1, 64, 1024, True), (3, 1024, 64, False)]
+HYBRID_ARCH = "recurrentgemma-9b"
+LRU_MAIN_SHAPE = (4, 4096, 4096, False)
+LRU_MAIN_CASES = [LRU_MAIN_SHAPE, (4, 4096, 4096, True),
+                  (3, 4099, 4001, True)]
+
+
+def check_close(torch, name, got, want, tol):
+    """|got - want| <= tol + tol * |want| elementwise (the JAX suite's
+    assert_allclose with atol = rtol = tol); returns max|got - want|."""
+    check(got.dtype == want.dtype and got.shape == want.shape,
+          f"{name}: {got.dtype}{tuple(got.shape)} vs plain "
+          f"{want.dtype}{tuple(want.shape)}")
+    d = (got.float() - want.float()).abs()
+    err = float(d.max()) if d.numel() else 0.0
+    check(bool((d <= tol + tol * want.float().abs()).all()),
+          f"{name} differs from the plain version: max abs err {err} "
+          f"(tolerance {tol})")
+    return err
+
+
+def unique_bytes(t):
+    """Bytes of the distinct elements a (possibly expanded) tensor
+    addresses: axes of stride 0 count once."""
+    n = 1
+    for size, stride in zip(t.shape, t.stride()):
+        if stride:
+            n *= size
+    return n * t.element_size()
+
+
+def ssd_inputs(torch, shape, dtype, seed):
+    """xdt, loga, Bm, Cm like the JAX suite's (0.3 * normal, -softplus
+    of a normal), Bm/Cm as an expanded view of ``groups`` groups when
+    groups > 0."""
+    B, L, H, P, N, groups = shape
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+
+    def rnd(*s):
+        return torch.randn(s, generator=gen, device="cuda")
+
+    G = groups or H
+    xdt = (rnd(B, L, H, P) * 0.3).to(dtype)
+    loga = (-torch.nn.functional.softplus(rnd(B, L, H))).to(dtype)
+    bc = [(rnd(B, L, G, N) * 0.3).to(dtype) for _ in range(2)]
+    if groups:
+        bc = [m.repeat_interleave(H // G, dim=2) if G > 1 else
+              m.expand(B, L, H, N) for m in bc]
+    return xdt, loga, bc[0], bc[1]
+
+
+def ssd_bound_ms(shape, args, out_itemsize, peak):
+    """Least time for one ssd_chunk call: the causal half of the work
+    (per (b, h) and query i of a chunk, i + 1 keys, each a score of N
+    multiply-adds and a weighted sum of P) over ``peak``, against the
+    inputs' distinct bytes read once and y written once over HBM
+    bandwidth."""
+    B, L, H, P, N, _ = shape
+    Q = min(256, L)
+    pairs = sum(q * (q + 1) // 2 for q in
+                [Q] * (L // Q) + ([L % Q] if L % Q else []))
+    flops = 2 * (N + P) * pairs * B * H
+    nbytes = sum(unique_bytes(t) for t in args) + B * L * H * P * out_itemsize
+    t_ops = flops / peak * 1e3
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def phase_ssd_kernel(torch):
+    """The ssd_chunk kernel against its plain version at the JAX suite's
+    shapes, a ragged and a multi-chunk case and the mamba2 prefill
+    shape, f32 (1e-4) and bf16 (5e-2), then timed at the latter."""
+    from repro_torch.kernels import ssd_chunk as sc
+    dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+    cases = [(s, d) for s in SSD_SHAPES + [SSD_MAIN_SHAPE] for d in dtypes]
+    max_err = {}
+    for seed, (shape, dname) in enumerate(cases):
+        args = ssd_inputs(torch, shape, dtypes[dname], seed)
+        out = sc.ssd_chunk_cuda(*args)
+        ref = sc.ssd_chunk_torch(*args)
+        torch.cuda.synchronize()
+        err = check_close(torch, f"ssd_chunk {shape} {dname}", out, ref,
+                          SCAN_TOL[dname])
+        max_err[dname] = max(max_err.get(dname, 0.0), err)
+        del args, out, ref
+    shape = SSD_MAIN_SHAPE
+    args = ssd_inputs(torch, shape, torch.float32, 100)
+    ms = time_ms(torch, lambda: sc.ssd_chunk_cuda(*args))
+    plain_ms = time_ms(torch, lambda: sc.ssd_chunk_torch(*args))
+    bound, bound_by = ssd_bound_ms(shape, args, 4, PEAK_F32_PER_S)
+    result = {"name": "ssd_chunk", "route": "cuda",
+              "source": "src/repro_torch/kernels/csrc/ssd_chunk.cu",
+              "replaces": "src/repro/kernels/ssd_chunk.py:71",
+              "max_abs_err": max(max_err.values()), "ms": ms,
+              "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
+              "library_ms": None}
+    emit({"phase": "ssd_kernel", "cases": len(cases),
+          "max_abs_err_by_dtype": max_err, "tolerance": SCAN_TOL,
+          "timed_shape": dict(zip(("B", "L", "H", "P", "N", "groups"),
+                                  shape), dtype="float32", Q=256),
+          "library_call": "none: no single PyTorch call computes it",
+          **result})
+    del args
+    return result
+
+
+def lru_inputs(torch, shape, dtype, seed):
+    """a = sigmoid(normal), b = 0.5 * normal, h0 normal (the JAX
+    suite's draws)."""
+    B, L, R, with_h0 = shape
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    a = torch.sigmoid(torch.randn((B, L, R), generator=gen, device="cuda"))
+    b = torch.randn((B, L, R), generator=gen, device="cuda") * 0.5
+    h0 = torch.randn((B, R), generator=gen, device="cuda").to(dtype) \
+        if with_h0 else None
+    return a.to(dtype), b.to(dtype), h0
+
+
+def lru_bound_ms(shape, itemsize):
+    """Least time for one lru_scan call: a and b read and h written once
+    (and h0 read) over HBM bandwidth, against a multiply and an add per
+    element over the f32 rate."""
+    B, L, R, with_h0 = shape
+    nbytes = 3 * B * L * R * itemsize + (4 * B * R if with_h0 else 0)
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = 2 * B * L * R / PEAK_F32_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def phase_lru_kernel(torch):
+    """The lru_scan kernel against its plain version at the JAX suite's
+    shapes (f32 1e-4, bf16 5e-2) and at the recurrentgemma prefill
+    shape, with and without h0, and a ragged one (f32), then timed at
+    the prefill shape without h0 (as the prefill calls it)."""
+    from repro_torch.kernels import lru_scan as ls
+    dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+    cases = [(s, d) for s in LRU_SHAPES for d in dtypes] \
+        + [(s, "float32") for s in LRU_MAIN_CASES]
+    max_err, exact = {}, True
+    for seed, (shape, dname) in enumerate(cases):
+        a, b, h0 = lru_inputs(torch, shape, dtypes[dname], seed)
+        out = ls.lru_scan_cuda(a, b, h0)
+        ref = ls.lru_scan_torch(a, b, h0)
+        torch.cuda.synchronize()
+        err = check_close(torch, f"lru_scan {shape} {dname}", out, ref,
+                          SCAN_TOL[dname])
+        exact = exact and bool(torch.equal(out, ref))
+        max_err[dname] = max(max_err.get(dname, 0.0), err)
+        del a, b, h0, out, ref
+    shape = LRU_MAIN_SHAPE
+    a, b, _ = lru_inputs(torch, shape, torch.float32, 100)
+    ms = time_ms(torch, lambda: ls.lru_scan_cuda(a, b))
+    plain_ms = time_ms(torch, lambda: ls.lru_scan_torch(a, b), reps=5)
+    bound, bound_by = lru_bound_ms(shape, 4)
+    result = {"name": "lru_scan", "route": "cuda",
+              "source": "src/repro_torch/kernels/csrc/lru_scan.cu",
+              "replaces": "src/repro/kernels/lru_scan.py:59",
+              "max_abs_err": max(max_err.values()), "ms": ms,
+              "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
+              "library_ms": None}
+    emit({"phase": "lru_kernel", "cases": len(cases),
+          "max_abs_err_by_dtype": max_err, "tolerance": SCAN_TOL,
+          "bit_equal_all_cases": exact,
+          "timed_shape": dict(zip(("B", "L", "R"), shape[:3]),
+                              dtype="float32", h0=False),
+          "plain_reps": 5,
+          "library_call": "none: no single PyTorch call computes it",
+          **result})
+    del a, b
     return result
 
 
 # kernel-name fragments of the matrix products (cuBLAS/CUTLASS on Hopper)
 MATMUL_KERNELS = ("gemm", "nvjet", "xmma", "cutlass", "cublas", "sm90_")
+# the port's kernels on the serving paths, by a fragment of their names
+PORT_KERNELS = {"flash_attention": "flash_fwd_kernel",
+                "ssd_chunk": "ssd_chunk_kernel", "lru_scan": "lru_scan_kernel"}
 
 
 def device_breakdown(torch, fn):
     """Run ``fn`` once under ``torch.profiler`` and split the device
-    time of its kernels by name: matrix products, the flash kernel,
-    everything else; ``idle_share`` is 1 - device time / host wall time
-    (the profiler's own overhead falls in the wall time). Returns None
-    when the profiler shows no device time."""
+    time of its kernels by name: matrix products, each of the port's
+    serving kernels, everything else; ``idle_share`` is 1 - device time
+    / host wall time (the profiler's own overhead falls in the wall
+    time). Returns None when the profiler shows no device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -495,12 +730,14 @@ def device_breakdown(torch, fn):
                 + e.time_range.elapsed_us() / 1e3
     if not by_name:
         return None
-    split = {"matmul_ms": 0.0, "flash_attention_ms": 0.0, "other_ms": 0.0}
+    split = {"matmul_ms": 0.0, **{f"{k}_ms": 0.0 for k in PORT_KERNELS},
+             "other_ms": 0.0}
     for name, ms in by_name.items():
         low = name.lower()
-        key = "flash_attention_ms" if "flash_fwd_kernel" in name else \
-            "matmul_ms" if any(f in low for f in MATMUL_KERNELS) \
-            else "other_ms"
+        key = next((f"{k}_ms" for k, frag in PORT_KERNELS.items()
+                    if frag in name), None) \
+            or ("matmul_ms" if any(f in low for f in MATMUL_KERNELS)
+                else "other_ms")
         split[key] += ms
     device_ms = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
@@ -760,8 +997,359 @@ def phase_serve_card_vs_cpu(torch):
           f"CPU plain path by {max_rel} (tolerance {CARD_VS_CPU_TOL})")
 
 
-PHASES = ("build", "kernel", "flash_kernel", "engine", "paper", "serve",
-          "serve_f32", "serve_card_vs_cpu")
+# SSM and hybrid serving: batch 4, 32 greedy decode steps after a
+# prompt of 2048 (mamba2) or 4096 tokens (recurrentgemma: twice its
+# 2048-token window, so the window masks keys in every attention layer
+# and the prefill's ring re-pack keeps the last 2048)
+FAMILY_PROMPT = {SSM_ARCH: 2048, HYBRID_ARCH: 4096}
+# kernel launches per prefill: one ssd_chunk per mamba2 layer; one
+# lru_scan per recurrent and one flash_attention per attention layer
+FAMILY_LAUNCHES = {SSM_ARCH: {"ssd_chunk": 48},
+                   HYBRID_ARCH: {"lru_scan": 26, "flash_attention": 12}}
+# Serving agreement of the recurrent families in bf16, max|logits -
+# reference| over max|reference|, against two references on the same
+# weights and tokens:
+# - the plain path's own serving run (prefill, then serve_step fed the
+#   served tokens, every kernel replaced by its plain version): the
+#   same operations at the same rounding points except inside the
+#   kernels (ssd_chunk and lru_scan agree with their plain versions bit
+#   for bit, flash rounds p at other points), so SERVE_BF16_TOL holds;
+# - the plain full forward over prompt + fed tokens. A decode step
+#   rounds to bf16 where the chunked full sequence does not (the
+#   recurrent state kept in bf16 and re-rounded every step, as in the
+#   JAX package; the four conv taps summed in one product where the
+#   full sequence rounds after each; one-row matmuls), so each layer's
+#   mixer output lands one or two bf16 steps (2^-8, 2^-7) from the full
+#   forward's, independently per layer: over L layers about
+#   sqrt(L) * 2^-8 of the residual stream, 2.7e-2 at mamba2's 48 layers
+#   and 2.4e-2 at recurrentgemma's 38, which the logits inherit. The
+#   bound is 4 times that for mamba2 (1e-1) and 2 times for
+#   recurrentgemma, whose embedding (scaled by sqrt(d_model)) dominates
+#   the stream (5e-2).
+FORWARD_BF16_TOL = {SSM_ARCH: 1e-1, HYBRID_ARCH: 5e-2}
+# full width, cut depth, float32 (TF32 off): recurrentgemma keeps one
+# full (rec, rec, attn) group
+FAMILY_F32_LAYERS = {SSM_ARCH: 2, HYBRID_ARCH: 3}
+# Each layer's kernel output against its plain version on the same
+# inputs, per row (max|delta| over the row's max|plain|). ssd_chunk and
+# lru_scan get float32 operands and give float32 (ssd_scan and the
+# RG-LRU cast first, as the JAX package does), so only the order of f32
+# sums differs (lru_scan: not even that); flash follows FLASH_BF16_ROW_TOL
+# in bf16 and the scans' float32 tolerance in float32.
+KERNEL_ROW_TOL = {"float32": 1e-4, "bfloat16": FLASH_BF16_ROW_TOL}
+
+
+def plain_kernel_checks(torch):
+    """(owner, attribute, label, plain version, when) of each serving
+    kernel: the function a model calls through ``owner.attribute`` and
+    what computes it without the kernel on the same arguments."""
+    from repro_torch.kernels import lru_scan as ls
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ssd_chunk as sc
+    from repro_torch.models import attention
+    attend = attention.attend
+
+    def plain_attend(q, k, v, **kw):
+        ops._FORCE_PLAIN = True
+        try:
+            return attend(q, k, v, **kw)
+        finally:
+            ops._FORCE_PLAIN = False
+
+    return [(ops, "ssd_chunk", "ssd_chunk", sc.ssd_chunk_torch, None),
+            (ops, "lru_scan", "lru_scan", ls.lru_scan_torch, None),
+            (attention, "attend", "flash_attention", plain_attend,
+             lambda q, *a, **kw: q.shape[1] > 1)]
+
+
+class HeldAgainstPlain:
+    """While active, every call of a serving kernel's entry point is
+    also computed by its plain version on the same arguments, and the
+    per-row error (:func:`row_rel_err`) is kept by kernel name; the
+    kernel's output is what the model goes on with."""
+
+    def __init__(self, torch):
+        self.checks = plain_kernel_checks(torch)
+        self.errs = {label: [] for _, _, label, _, _ in self.checks}
+        self.saved = []
+
+    def __enter__(self):
+        for owner, attr, label, plain, when in self.checks:
+            orig = getattr(owner, attr)
+
+            def checking(*args, _orig=orig, _label=label, _plain=plain,
+                         _when=when, **kw):
+                out = _orig(*args, **kw)
+                if _when is None or _when(*args, **kw):
+                    self.errs[_label].append(
+                        (row_rel_err(out, _plain(*args, **kw)),
+                         str(out.dtype).replace("torch.", "")))
+                return out
+
+            self.saved.append((owner, attr, orig))
+            setattr(owner, attr, checking)
+        return self
+
+    def __exit__(self, *exc):
+        for owner, attr, orig in reversed(self.saved):
+            setattr(owner, attr, orig)
+        self.saved.clear()
+
+    def report(self, want):
+        """Check each kernel of ``want`` ({name: calls}) was held once
+        per call and within KERNEL_ROW_TOL; returns {name: max err}."""
+        out = {}
+        for name, n in want.items():
+            errs = self.errs[name]
+            check(len(errs) == n, f"{name} held against its plain version "
+                  f"{len(errs)} times, not {n}")
+            for err, dtype in errs:
+                check(err <= KERNEL_ROW_TOL[dtype], f"a layer's {name} output "
+                      f"differs from its plain version by {err} of a row's "
+                      f"max (tolerance {KERNEL_ROW_TOL[dtype]}, {dtype})")
+            out[name] = max(e for e, _ in errs)
+        return out
+
+
+def family_launches(cfg):
+    """{kernel: launches} of one prefill of ``cfg``."""
+    if cfg.family == "ssm":
+        return {"ssd_chunk": cfg.n_layers}
+    from repro_torch.models import hybrid
+    _, _, n_rec, n_attn = hybrid.layer_layout(cfg)
+    return {"lru_scan": n_rec, "flash_attention": n_attn}
+
+
+def zero_launches():
+    from repro_torch.kernels import ops
+    for name in ops.LAUNCHES:
+        ops.LAUNCHES[name] = 0
+
+
+def check_launches(launches, want, where):
+    for name, n in launches.items():
+        check(n == want.get(name, 0), f"{where} launched {name} {n} times, "
+              f"not {want.get(name, 0)}")
+
+
+def tail_reference_logits(torch, cfg, model, prompt, fed):
+    """The plain path's full forward (no kernel) over prompt + fed
+    tokens, unembedding only the positions the serving run produced
+    (the last prompt token, then each fed one): the logits of every
+    position of recurrentgemma's 256,000-token vocabulary would take
+    8.5 GB in bf16."""
+    from repro_torch import models
+    from repro_torch.kernels import ops
+    from repro_torch.models import dense
+    tokens = torch.cat([prompt, fed], dim=1)
+    ops._FORCE_PLAIN = True
+    try:
+        with torch.no_grad():
+            x = models.get_module(cfg).hidden(cfg, model, tokens)
+            return dense.unembed(cfg, model, x[:, prompt.shape[1] - 1:])
+    finally:
+        ops._FORCE_PLAIN = False
+
+
+def plain_served_logits(torch, cfg, model, prompt, fed):
+    """The plain path's serving run on the same weights: prefill, then
+    serve_step fed ``fed`` one token at a time, every kernel replaced
+    by its plain version; the logits at the served positions."""
+    from repro_torch import models
+    from repro_torch.kernels import ops
+    ops._FORCE_PLAIN = True
+    try:
+        logits, cache = models.prefill(cfg, model, {"tokens": prompt})
+        out = [logits]
+        for i in range(fed.shape[1]):
+            step, cache = models.serve_step(cfg, model, cache,
+                                            fed[:, i:i + 1])
+            out.append(step)
+    finally:
+        ops._FORCE_PLAIN = False
+    return torch.cat(out, dim=1)
+
+
+def phase_serve_family(torch, arch):
+    """A serving main path: ``arch`` at its full config, bf16, random
+    weights from seed 0, Zipf prompts from seed 0; a batch of 4 prompts
+    through the prefill (its kernels launched FAMILY_LAUNCHES times,
+    none in decode), 32 greedy decode steps; each layer's kernel output
+    held against its plain version on the same inputs, and the logits
+    against the plain path's full forward over the same tokens."""
+    from repro_torch import models
+    from repro_torch.configs import get_config
+    from repro_torch.data import make_batch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    cfg = get_config(arch)
+    prompt_len, want = FAMILY_PROMPT[arch], FAMILY_LAUNCHES[arch]
+    check(family_launches(cfg) == want, f"{arch}: layer layout "
+          f"{family_launches(cfg)} is not {want}")
+    t0 = time.perf_counter()
+    model = models.init(cfg, 0, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    prompt = make_batch(cfg, SERVE_BATCH, prompt_len, 0, 0,
+                        device="cuda")["tokens"]
+    serve.serve(cfg, model, prompt[:, :256], 2)          # warm-up
+    free_cuda(torch)
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    res = serve.serve(cfg, model, prompt, SERVE_STEPS)
+    launches = dict(ops.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check_launches(launches, want, f"serving {arch}")
+    # one more decode step launches no kernel
+    models.serve_step(cfg, model, res.cache, res.tokens[:, -1:])
+    check_launches(dict(ops.LAUNCHES), want, f"{arch} decode")
+    check(tuple(res.tokens.shape) == (SERVE_BATCH, SERVE_STEPS + 1),
+          "bad token shape")
+    got = served_logits(torch, res)
+    check(bool(torch.isfinite(got).all()), f"non-finite {arch} logits")
+    res.cache.clear()
+    free_cuda(torch)
+    state = {}
+
+    def prefill():
+        state["logits"], state["cache"] = models.prefill(
+            cfg, model, {"tokens": prompt})
+
+    def decode():
+        tok = state["logits"][:, -1].argmax(-1)[:, None].to(torch.int32)
+        for _ in range(4):
+            lg, state["cache"] = models.serve_step(cfg, model,
+                                                   state["cache"], tok)
+            tok = lg[:, -1].argmax(-1)[:, None].to(torch.int32)
+
+    profiled = {"prefill": device_breakdown(torch, prefill),
+                "decode_4_steps": device_breakdown(torch, decode)}
+    state.clear()
+    free_cuda(torch)
+    with HeldAgainstPlain(torch) as held:
+        models.prefill(cfg, model, {"tokens": prompt})
+    layer_errs = held.report(want)
+    free_cuda(torch)
+    fed = res.tokens[:, :SERVE_STEPS]
+    plain_rel, plain_mean = rel_err(torch, got, plain_served_logits(
+        torch, cfg, model, prompt, fed))
+    free_cuda(torch)
+    t0 = time.perf_counter()
+    want_logits = tail_reference_logits(torch, cfg, model, prompt, fed)
+    torch.cuda.synchronize()
+    ref_s = time.perf_counter() - t0
+    max_rel, mean_rel = rel_err(torch, got, want_logits)
+    agree = float((got.argmax(-1) == want_logits.argmax(-1)).float().mean())
+    emit({"phase": f"serve_{cfg.family}", "arch": arch,
+          "layers": cfg.n_layers, "dtype": cfg.dtype,
+          "params": models.count_params(cfg), "batch": SERVE_BATCH,
+          "prompt_len": prompt_len, "decode_steps": SERVE_STEPS,
+          "init_s": init_s, "prefill_s": res.prefill_s,
+          "decode_ms_per_token": res.decode_s / SERVE_STEPS * 1e3,
+          "peak_mem_gb": peak_gb, "launches": launches,
+          "vs_plain_serve_max_rel_err": plain_rel,
+          "vs_plain_serve_mean_rel_err": plain_mean,
+          "vs_plain_serve_tolerance": SERVE_BF16_TOL,
+          "logits_max_rel_err": max_rel, "logits_mean_rel_err": mean_rel,
+          "tolerance": FORWARD_BF16_TOL[arch], "argmax_agreement": agree,
+          "layer_max_row_rel_err": layer_errs,
+          "layer_row_tolerance": KERNEL_ROW_TOL,
+          "reference_s": ref_s, "profile": profiled})
+    check(plain_rel <= SERVE_BF16_TOL, f"{arch} logits differ from the "
+          f"plain path's serving run by {plain_rel} of max|logit| "
+          f"(tolerance {SERVE_BF16_TOL})")
+    check(max_rel <= FORWARD_BF16_TOL[arch], f"{arch} logits differ from "
+          f"the plain full forward by {max_rel} of max|logit| (tolerance "
+          f"{FORWARD_BF16_TOL[arch]})")
+    del model, got, want_logits
+    free_cuda(torch)
+    return {k: launches[k] for k in want}
+
+
+def phase_serve_family_f32(torch, arch):
+    """The tight check: ``arch`` at full width with FAMILY_F32_LAYERS
+    layers in float32, matmuls in full float32 (TF32 off): the served
+    logits against the plain full forward (SERVE_F32_TOL), and each
+    layer's kernel output against its plain version on the same inputs
+    (KERNEL_ROW_TOL, float32)."""
+    from repro_torch import models
+    from repro_torch.configs import get_config
+    from repro_torch.data import make_batch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    n_layers = FAMILY_F32_LAYERS[arch]
+    cfg = get_config(arch).replace(n_layers=n_layers, dtype="float32")
+    per_layer = family_launches(cfg)
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        model = models.init(cfg, 0, device="cuda")
+        prompt = make_batch(cfg, SERVE_BATCH, FAMILY_PROMPT[arch], 0, 0,
+                            device="cuda")["tokens"]
+        zero_launches()
+        with HeldAgainstPlain(torch) as held:
+            res = serve.serve(cfg, model, prompt, SERVE_STEPS)
+        check_launches(dict(ops.LAUNCHES), per_layer, f"{arch} f32")
+        layer_errs = held.report(per_layer)
+        got = served_logits(torch, res)
+        res.cache.clear()
+        want = tail_reference_logits(torch, cfg, model, prompt,
+                                     res.tokens[:, :SERVE_STEPS])
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, \
+            torch.backends.cudnn.allow_tf32 = tf32
+    max_rel, mean_rel = rel_err(torch, got, want)
+    emit({"phase": f"serve_{cfg.family}_f32", "arch": arch,
+          "layers": n_layers, "dtype": "float32", "allow_tf32": False,
+          "logits_max_rel_err": max_rel, "logits_mean_rel_err": mean_rel,
+          "tolerance": SERVE_F32_TOL, "layer_max_row_rel_err": layer_errs,
+          "layer_row_tolerance": KERNEL_ROW_TOL["float32"]})
+    check(max_rel <= SERVE_F32_TOL, f"f32 {arch} serving differs from the "
+          f"plain path by {max_rel} (tolerance {SERVE_F32_TOL})")
+    del model, got, want
+    free_cuda(torch)
+
+
+def phase_serve_family_card_vs_cpu(torch, arch, prompt_len=80):
+    """The smoke config's kernel path on the card against the CPU plain
+    path, same weights, same tokens (the card's greedy tokens are fed to
+    the CPU run). 80 prompt tokens: not a multiple of mamba2-smoke's
+    32-token chunk, and longer than recurrentgemma-smoke's 64-token
+    window."""
+    from repro_torch import models
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data import make_batch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    cfg = get_smoke_config(arch).replace(dtype="float32")
+    cpu_model = models.init(cfg, 0, device="cpu")
+    card_model = models.init(cfg, 0, device="cpu").to("cuda")
+    prompt = make_batch(cfg, 2, prompt_len, 0, 0, device="cpu")["tokens"]
+    zero_launches()
+    res = serve.serve(cfg, card_model, prompt.cuda(), 8)
+    check_launches(dict(ops.LAUNCHES), family_launches(cfg),
+                   f"the card's {cfg.name} run")
+    logits, cache = models.prefill(cfg, cpu_model, {"tokens": prompt})
+    want = [logits]
+    for i in range(8):
+        step, cache = models.serve_step(cfg, cpu_model, cache,
+                                        res.tokens[:, i:i + 1].cpu())
+        want.append(step)
+    max_rel, _ = rel_err(torch, served_logits(torch, res).cpu(),
+                         torch.cat(want, dim=1))
+    emit({"phase": f"serve_{cfg.family}_card_vs_cpu", "arch": cfg.name,
+          "batch": 2, "prompt_len": prompt_len, "decode_steps": 8,
+          "launches": dict(ops.LAUNCHES), "logits_max_rel_err": max_rel,
+          "tolerance": CARD_VS_CPU_TOL})
+    check(max_rel <= CARD_VS_CPU_TOL, f"card kernel path differs from the "
+          f"CPU plain path by {max_rel} (tolerance {CARD_VS_CPU_TOL})")
+
+
+PHASES = ("build", "kernel", "flash_kernel", "ssd_kernel", "lru_kernel",
+          "engine", "paper", "serve", "serve_f32", "serve_card_vs_cpu",
+          "serve_ssm", "serve_hybrid")
 
 
 def main(argv=None) -> int:
@@ -791,23 +1379,37 @@ def main(argv=None) -> int:
             kernels.append(phase_kernel(torch, np))
         if "flash_kernel" in phases:
             kernels.append(phase_flash_kernel(torch))
+        if "ssd_kernel" in phases:
+            kernels.append(phase_ssd_kernel(torch))
+        if "lru_kernel" in phases:
+            kernels.append(phase_lru_kernel(torch))
         if "engine" in phases:
             phase_engine(torch)
-        launches = {}
+        launches = {}         # kernel -> {main path: launches}
         if "paper" in phases:
-            launches["schedule_step"] = phase_paper(torch, np)
+            launches["schedule_step"] = {"paper": phase_paper(torch, np)}
         if "serve" in phases:
-            launches["flash_attention"] = phase_serve(torch)
+            launches["flash_attention"] = {"serve": phase_serve(torch)}
         if "serve_f32" in phases:
             phase_serve_f32(torch)
         if "serve_card_vs_cpu" in phases:
             phase_serve_card_vs_cpu(torch)
+        for arch in (SSM_ARCH, HYBRID_ARCH):
+            path = "serve_ssm" if arch == SSM_ARCH else "serve_hybrid"
+            if path not in phases:
+                continue
+            for name, n in phase_serve_family(torch, arch).items():
+                launches.setdefault(name, {})[path] = n
+            phase_serve_family_f32(torch, arch)
+            phase_serve_family_card_vs_cpu(torch, arch)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
     for k in kernels:
         k.pop("timed_shape", None)
-        k["launches"] = launches.get(k["name"])
+        by_path = launches.get(k["name"])
+        k["launches"] = sum(by_path.values()) if by_path else None
+        k["launches_by_path"] = by_path
     emit({"kernels": kernels})
     print(smi)
     print(f"chip_smoke: {time.perf_counter() - t0:.1f} s", file=sys.stderr)

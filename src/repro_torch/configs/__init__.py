@@ -1,9 +1,9 @@
 """Configuration (the port's copy of ``repro.configs``).
 
 ``get_config``/``get_smoke_config``/``list_archs`` cover the archs the
-port runs so far, the dense family. Every other arch id of the JAX
-package raises ``NotImplementedError`` naming the ROADMAP item that
-brings its family (``base.UNPORTED_FAMILIES``).
+port runs so far: the dense, ssm and hybrid families. Every other arch
+id of the JAX package raises ``NotImplementedError`` naming the ROADMAP
+item that brings its family (``base.UNPORTED_FAMILIES``).
 """
 from __future__ import annotations
 
@@ -25,15 +25,15 @@ from repro_torch.configs.base import (  # noqa: F401
 # arch id -> module name, the archs the port runs
 _ARCH_MODULES: Dict[str, str] = {
     "command-r-35b": "command_r_35b",
+    "mamba2-1.3b": "mamba2_1_3b",
     "mistral-large-123b": "mistral_large_123b",
     "nemotron-4-340b": "nemotron_4_340b",
+    "recurrentgemma-9b": "recurrentgemma_9b",
     "stablelm-12b": "stablelm_12b",
 }
 
 # arch id -> model family, the JAX package's archs the port does not run
 _UNPORTED_ARCHS: Dict[str, str] = {
-    "mamba2-1.3b": "ssm",
-    "recurrentgemma-9b": "hybrid",
     "qwen3-moe-30b-a3b": "moe",
     "mixtral-8x22b": "moe",
     "whisper-large-v3": "audio",

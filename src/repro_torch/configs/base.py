@@ -20,8 +20,6 @@ PAPER_P = 1         # per-job preemption cap P (Fig. 5 sweeps it)
 # Model family -> the ROADMAP item (queue 1 of ROADMAP.md) that ports it;
 # the port runs the families not listed here.
 UNPORTED_FAMILIES = {
-    "ssm": "the SSM slice",
-    "hybrid": "the hybrid slice",
     "moe": "the other model families",
     "audio": "the other model families",
     "vlm": "the other model families",

@@ -21,7 +21,7 @@ from typing import Dict, Iterable, Tuple
 
 CSRC = Path(__file__).resolve().with_name("csrc")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-KERNELS = ("schedule_step", "flash_attention")
+KERNELS = ("schedule_step", "flash_attention", "ssd_chunk", "lru_scan")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # Per-kernel flags on top of NVCC_FLAGS. schedule_step is bit-exact with
@@ -29,6 +29,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
 KERNEL_FLAGS: Dict[str, Tuple[str, ...]] = {
     "schedule_step": ("-fmad=false",),
     "flash_attention": (),
+    "ssd_chunk": (),
+    "lru_scan": (),
 }
 
 # Kernel launches by kernel name, raised by each CUDA wrapper after a

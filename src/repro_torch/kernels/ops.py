@@ -18,14 +18,16 @@ import torch
 from repro_torch.configs.base import PAPER_S
 from repro_torch.kernels import build
 from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import lru_scan as _ls
 from repro_torch.kernels import schedule_step as _ss
+from repro_torch.kernels import ssd_chunk as _sc
 
 LAUNCHES = build.LAUNCHES
 KERNEL_EVENTS = None
-# Private test hook: True sends CUDA tensors of ``schedule_step`` to the
-# plain version too, and ``models.attention.attend`` to its plain path
-# (the one place attention tests it), so a run on the card can be held
-# against its own plain path.
+# Private test hook: True sends CUDA tensors of ``schedule_step``,
+# ``ssd_chunk`` and ``lru_scan`` to the plain version too, and
+# ``models.attention.attend`` to its plain path (the one place attention
+# tests it), so a run on the card can be held against its own plain path.
 _FORCE_PLAIN = False
 # the JAX flash wrapper's default block, which sets its alignment rule
 _JAX_BLOCK = 128
@@ -83,3 +85,23 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                                          window=window, softcap=softcap)
     return _fa.flash_attention_cuda(q, k, v, causal=causal, window=window,
                                     softcap=softcap)
+
+
+def ssd_chunk(xdt, loga, Bm, Cm):
+    """Mamba-2 intra-chunk SSD with zero initial state, chunks of
+    Q = min(256, L): xdt (B, L, H, P), loga (B, L, H), Bm/Cm (B, L, H,
+    N) -> y (B, L, H, P); see ``kernels/ssd_chunk.py``. Unlike the JAX
+    wrapper, L need not be a multiple of Q (the last chunk is shorter)."""
+    if xdt.device.type != "cuda" or _FORCE_PLAIN:
+        return _sc.ssd_chunk_torch(xdt, loga, Bm, Cm)
+    return _sc.ssd_chunk_cuda(xdt, loga, Bm, Cm)
+
+
+def lru_scan(a, b, h0=None):
+    """Diagonal linear recurrence h_t = a_t h_{t-1} + b_t with a float32
+    carry: a, b (B, L, R), h0 (B, R) or None -> h (B, L, R) in a's type;
+    see ``kernels/lru_scan.py``. The kernel masks ragged L and R where
+    the JAX wrapper pads them with a = 1, b = 0."""
+    if a.device.type != "cuda" or _FORCE_PLAIN:
+        return _ls.lru_scan_torch(a, b, h0)
+    return _ls.lru_scan_cuda(a, b, h0)

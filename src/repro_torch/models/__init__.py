@@ -1,9 +1,9 @@
 """Model registry: family -> module (counterpart of ``repro.models``).
 
-The port runs the dense family so far. Every other family raises
-``NotImplementedError`` naming the ROADMAP item that brings it
-(``configs.base.UNPORTED_FAMILIES``). The functions take the model module
-where the JAX package takes its parameter tree.
+The port runs the dense, ssm and hybrid families so far. Every other
+family raises ``NotImplementedError`` naming the ROADMAP item that
+brings it (``configs.base.UNPORTED_FAMILIES``). The functions take the
+model module where the JAX package takes its parameter tree.
 """
 from __future__ import annotations
 
@@ -11,7 +11,7 @@ import importlib
 
 from repro_torch.configs.base import ModelConfig, require_ported
 
-_FAMILY_MODULES = {"dense": "dense"}
+_FAMILY_MODULES = {"dense": "dense", "ssm": "ssm", "hybrid": "hybrid"}
 
 
 def get_module(cfg: ModelConfig):

@@ -1,10 +1,11 @@
 """Carry the JAX package's parameters into the port.
 
 :func:`params_from_numpy` takes the JAX package's parameter tree of a
-dense model (``repro.models.dense.init``'s nested dict, leaves as numpy
-arrays, the per-layer leaves stacked on a leading layer axis) and
-returns the port's :class:`~repro_torch.models.dense.DenseLM` holding
-the same values, each stacked leaf split into its layers.
+model (``repro.models.init``'s nested dict, leaves as numpy arrays, the
+per-layer leaves stacked on a leading layer axis: ``layers`` for the
+dense and ssm families, ``rec`` and ``attn`` for the hybrid) and
+returns the port's module holding the same values, each stacked leaf
+split into its layers.
 """
 from __future__ import annotations
 
@@ -13,7 +14,11 @@ import torch
 
 from repro_torch import device as _device
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import dense
+from repro_torch.models import dense, hybrid, ssm
+
+_MODELS = {"dense": (dense.DenseLM, dense.param_defs),
+           "ssm": (ssm.MambaLM, ssm.param_defs),
+           "hybrid": (hybrid.HybridLM, hybrid.param_defs)}
 
 
 def to_tensor(a: np.ndarray) -> torch.Tensor:
@@ -28,20 +33,27 @@ def to_tensor(a: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(a)
 
 
+def _keys(tree: dict) -> dict:
+    return {k: sorted(v) if isinstance(v, dict) else None
+            for k, v in tree.items()}
+
+
 @torch.no_grad()
-def params_from_numpy(cfg: ModelConfig, tree: dict, device) -> dense.DenseLM:
+def params_from_numpy(cfg: ModelConfig, tree: dict, device):
     """The port's module for ``cfg`` on ``device`` with the values of
     ``tree``; raises on a missing, extra or misshapen leaf, and on a leaf
-    whose type is not the model's."""
-    if cfg.family != "dense":
+    whose type is not the one its definition gives (the model's type,
+    or the leaf's own, as float32 ``lam`` in a bfloat16 hybrid)."""
+    if cfg.family not in _MODELS:
         raise NotImplementedError(
-            f"params_from_numpy converts dense models; got {cfg.family!r}")
-    model = dense.DenseLM(cfg, device=_device.resolve(device))
-    defs = dense.param_defs(cfg)
-    if set(tree) != set(defs) or set(tree["layers"]) != set(defs["layers"]):
-        raise ValueError(f"parameter tree keys {sorted(tree)} / "
-                         f"{sorted(tree.get('layers', {}))} do not match "
-                         f"the {cfg.name} definition")
+            f"params_from_numpy converts the dense, ssm and hybrid "
+            f"families; got {cfg.family!r}")
+    cls, param_defs = _MODELS[cfg.family]
+    model = cls(cfg, device=_device.resolve(device))
+    defs = param_defs(cfg)
+    if _keys(tree) != _keys(defs):
+        raise ValueError(f"parameter tree keys {_keys(tree)} do not match "
+                         f"the {cfg.name} definition {_keys(defs)}")
 
     def put(dst: torch.Tensor, src: torch.Tensor, name: str):
         if tuple(src.shape) != tuple(dst.shape) or src.dtype != dst.dtype:
@@ -51,11 +63,16 @@ def params_from_numpy(cfg: ModelConfig, tree: dict, device) -> dense.DenseLM:
         dst.copy_(src)
 
     for name, a in tree.items():
-        if name == "layers":
+        if isinstance(a, dict):
             for lname, la in a.items():
                 t = to_tensor(la)
-                for li in range(cfg.n_layers):
-                    put(model.leaf(lname, li), t[li], f"layers.{lname}[{li}]")
+                n = defs[name][lname].shape[0]
+                if t.dim() == 0 or t.shape[0] != n:
+                    raise ValueError(f"{name}.{lname}: expected {n} stacked "
+                                     f"layers, got shape {tuple(t.shape)}")
+                for li in range(n):
+                    put(model.leaf(lname, li, name), t[li],
+                        f"{name}.{lname}[{li}]")
         else:
             put(model.leaf(name), to_tensor(a), name)
     return model

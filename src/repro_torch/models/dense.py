@@ -174,9 +174,10 @@ class DenseLM(nn.Module):
         self.layers = nn.ModuleList(DenseLayer(cfg, dtype, device)
                                     for _ in range(cfg.n_layers))
 
-    def leaf(self, name: str, layer: Optional[int] = None) -> nn.Parameter:
+    def leaf(self, name: str, layer: Optional[int] = None,
+             stack: str = "layers") -> nn.Parameter:
         """The parameter of ParamDef ``name``; ``layer`` picks the slice
-        of a stacked (per-layer) leaf."""
+        of a stacked (per-layer) leaf (the one stack is ``layers``)."""
         if layer is None:
             return getattr(self.top, name)
         lm = self.layers[layer]
@@ -191,14 +192,24 @@ def init(cfg: ModelConfig, seed: int = 0, *, device=None) -> DenseLM:
     slice at a time) from a ``torch.Generator`` on ``device`` seeded
     with ``seed``. The numbers differ from ``jax.random``'s."""
     dev = _device.resolve(device)
-    gen = torch.Generator(device=dev)
+    return init_leaves(DenseLM(cfg, device=dev), param_defs(cfg), seed, dev)
+
+
+@torch.no_grad()
+def init_leaves(model: nn.Module, defs: dict, seed: int,
+                device: torch.device) -> nn.Module:
+    """Fill ``model`` from ``defs`` with a ``torch.Generator`` on
+    ``device`` seeded with ``seed``: leaf by leaf in the order of
+    ``defs``, a stack (a dict of leaves stacked on a leading layer axis)
+    one layer's slice at a time. ``model.leaf(name, layer, stack)``
+    names each parameter."""
+    gen = torch.Generator(device=device)
     gen.manual_seed(seed)
-    model = DenseLM(cfg, device=dev)
-    for name, d in param_defs(cfg).items():
-        if name == "layers":
+    for name, d in defs.items():
+        if isinstance(d, dict):
             for lname, ld in d.items():
-                for li in range(cfg.n_layers):
-                    common.init_(model.leaf(lname, li), ld, gen)
+                for li in range(ld.shape[0]):
+                    common.init_(model.leaf(lname, li, name), ld, gen)
         else:
             common.init_(model.leaf(name), d, gen)
     return model
@@ -208,12 +219,13 @@ def init(cfg: ModelConfig, seed: int = 0, *, device=None) -> DenseLM:
 # Public model API
 # ---------------------------------------------------------------------------
 
-def _embed(cfg: ModelConfig, model: DenseLM,
-           tokens: torch.Tensor) -> torch.Tensor:
+def embed(cfg: ModelConfig, model: nn.Module,
+          tokens: torch.Tensor) -> torch.Tensor:
     return model.top.embed[tokens].to(common.torch_dtype(cfg.dtype))
 
 
-def unembed(cfg: ModelConfig, model: DenseLM, x: torch.Tensor) -> torch.Tensor:
+def unembed(cfg: ModelConfig, model: nn.Module,
+            x: torch.Tensor) -> torch.Tensor:
     x = common.rms_norm(x, model.top.final_norm, cfg.norm_eps)
     if cfg.tie_embeddings:
         logits = x @ model.top.embed.t()
@@ -222,17 +234,23 @@ def unembed(cfg: ModelConfig, model: DenseLM, x: torch.Tensor) -> torch.Tensor:
     return common.softcap(logits, cfg.logit_softcap)
 
 
-@torch.no_grad()
-def forward(cfg: ModelConfig, model: DenseLM,
-            tokens: torch.Tensor) -> torch.Tensor:
-    """Scoring forward. tokens (B, S) -> logits (B, S, V)."""
+def hidden(cfg: ModelConfig, model: DenseLM,
+           tokens: torch.Tensor) -> torch.Tensor:
+    """The last layer's output before the final norm, (B, S, D)."""
     S = tokens.shape[1]
-    x = _embed(cfg, model, tokens)
+    x = embed(cfg, model, tokens)
     positions = torch.arange(S, device=x.device)
     mask = common.causal_mask(S, S, window=cfg.window, device=x.device)
     for layer in model.layers:
         x, _ = layer(x, positions, mask)
-    return unembed(cfg, model, x)
+    return x
+
+
+@torch.no_grad()
+def forward(cfg: ModelConfig, model: DenseLM,
+            tokens: torch.Tensor) -> torch.Tensor:
+    """Scoring forward. tokens (B, S) -> logits (B, S, V)."""
+    return unembed(cfg, model, hidden(cfg, model, tokens))
 
 
 @torch.no_grad()
@@ -243,7 +261,7 @@ def prefill(cfg: ModelConfig, model: DenseLM, tokens: torch.Tensor,
     ``pad_to`` reserves cache room for subsequent decode steps. Each
     layer's k/v go straight into the cache as they are computed."""
     B, S = tokens.shape
-    x = _embed(cfg, model, tokens)
+    x = embed(cfg, model, tokens)
     positions = torch.arange(S, device=x.device)
     mask = common.causal_mask(S, S, window=cfg.window, device=x.device)
     cache = attention.init_cache(cfg.n_layers, B, max(pad_to, S),
@@ -280,7 +298,7 @@ def serve_step(cfg: ModelConfig, model: DenseLM, cache: dict,
     """Decode ONE token. tokens (B, 1) -> (logits (B, 1, V), cache).
 
     The cache is updated in place and returned."""
-    x = _embed(cfg, model, tokens)
+    x = embed(cfg, model, tokens)
     pos = cache["next_pos"]
     cache_len = cache["k"].shape[2]
     w = cfg.window   # 0 = full attention (see init_decode_cache docstring)

@@ -112,9 +112,10 @@ def test_launch_counts_are_one_dict_over_all_kernels():
     from repro_torch.kernels import build
     assert tops.LAUNCHES is build.LAUNCHES
     assert set(tops.LAUNCHES) == set(build.KERNELS) == {
-        "schedule_step", "flash_attention"}
+        "schedule_step", "flash_attention", "ssd_chunk", "lru_scan"}
     assert "-fmad=false" in build.flags("schedule_step")
-    assert "-fmad=false" not in build.flags("flash_attention")
+    for name in ("flash_attention", "ssd_chunk", "lru_scan"):
+        assert "-fmad=false" not in build.flags(name)
 
 
 @pytest.mark.parametrize("Sq,q_chunk", [(128, 32), (100, 32), (64, 1024)])
