@@ -53,8 +53,8 @@ PEAK_F32_PER_S = 67e12
 PEAK_BF16_PER_S = 989e12
 KERNEL_SHAPES = [(b, j, m) for b in (1, 4) for j in (5, 1000, 65536)
                  for m in (8, 84)]
-# flash attention: the JAX suite's shapes (tests/test_kernels.py), each
-# in f32 and bf16, (B, Sq, Skv, H, KV, hd, causal, window, softcap)
+# flash attention: the JAX suite's shapes (tests/test_kernels.py) and
+# more, each in f32 and bf16, (B, Sq, Skv, H, KV, hd, causal, window, softcap)
 FLASH_SHAPES = [
     (2, 256, 256, 4, 2, 64, True, 0, 0.0),
     (1, 128, 256, 4, 1, 128, True, 0, 0.0),
@@ -63,6 +63,14 @@ FLASH_SHAPES = [
     (1, 128, 128, 4, 2, 64, True, 0, 30.0),
     (2, 300, 300, 4, 2, 64, True, 0, 0.0),
     (1, 100, 260, 4, 4, 32, True, 48, 0.0),
+    # the card tests' cases for the tensor-core kernel: nemotron-4-340b's
+    # heads (hd 192, G 12), recurrentgemma's heads at a smaller length, a
+    # causal case whose Sq*G is no multiple of 128 over several key
+    # tiles, and a 2048-long case that cycles the K/V ring many times
+    (1, 256, 256, 24, 2, 192, True, 0, 0.0),
+    (1, 512, 512, 16, 1, 256, True, 128, 0.0),
+    (2, 1000, 1000, 8, 2, 128, True, 0, 0.0),
+    (1, 2048, 2048, 8, 2, 160, True, 0, 0.0),
 ]
 # the stablelm-12b serving prefill: B 4, Sq = Skv 2048, H 32, KV 8, hd 160
 SERVE_ARCH = "stablelm-12b"
@@ -377,11 +385,10 @@ def phase_paper(torch, np, n_jobs=PAPER_JOBS):
     return launches
 
 
-def flash_bound_ms(shape, itemsize):
-    """Least time for one flash-attention call: the matrix-product FLOPs
-    of the (query, key) pairs this mask attends (2*hd for q.k and 2*hd
-    for p.v per pair and head) over the bf16 tensor-core rate, against
-    q, k, v read once and o written once over HBM bandwidth."""
+def flash_flops(shape):
+    """The matrix-product FLOPs of one flash-attention call: the (query,
+    key) pairs its mask attends, 2*hd for q.k and 2*hd for p.v per pair
+    and head (the counted work behind a TFLOP/s figure)."""
     B, Sq, Skv, H, KV, hd, causal, window, _ = shape
     pairs = 0
     for i in range(Sq):
@@ -389,7 +396,15 @@ def flash_bound_ms(shape, itemsize):
         hi = min(Skv - 1, pos) if causal else Skv - 1
         lo = max(0, pos - window + 1) if window > 0 else 0
         pairs += max(0, hi - lo + 1)
-    flops = 4 * B * H * hd * pairs
+    return 4 * B * H * hd * pairs
+
+
+def flash_bound_ms(shape, itemsize):
+    """Least time for one flash-attention call: its FLOPs
+    (:func:`flash_flops`) over the bf16 tensor-core rate, against q, k,
+    v read once and o written once over HBM bandwidth."""
+    B, Sq, Skv, H, KV, hd = shape[:6]
+    flops = flash_flops(shape)
     nbytes = itemsize * hd * (2 * B * Sq * H + 2 * B * Skv * KV)
     t_ops = flops / PEAK_BF16_PER_S * 1e3
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
@@ -405,10 +420,12 @@ def flash_inputs(torch, shape, dtype, seed):
 
 
 def phase_flash_kernel(torch):
-    """The flash kernel against its plain version at the JAX suite's 7
-    shapes and the serving prefill shape, each in f32 and bf16, then
-    timed at the latter beside the plain version and PyTorch's
-    scaled_dot_product_attention (a yardstick the port never calls)."""
+    """The flash kernel against its plain version at FLASH_SHAPES and
+    the two serving prefill shapes, each in f32 (the CUDA-core kernel)
+    and bf16 (the wgmma kernel), then timed at the serving shapes in
+    bf16 beside the plain version and PyTorch's
+    scaled_dot_product_attention (a yardstick the port never calls),
+    with the counted TFLOP/s."""
     from repro_torch.kernels import flash_attention as fa
     dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
     cases = [(s, d) for s in FLASH_SHAPES + [FLASH_MAIN_SHAPE,
@@ -470,7 +487,7 @@ def phase_flash_kernel(torch):
           "library_call": "scaled_dot_product_attention(is_causal=True, "
                           "enable_gqa=True)",
           "library_max_abs_err_vs_plain": lib_err, "window_case": window,
-          **result})
+          "tflops_counted": flash_flops(shape) / ms / 1e9, **result})
     result.update({f"window_{k}": window[k] for k in
                    ("ms", "plain_ms", "bound_ms", "library_ms")})
     return result
@@ -500,6 +517,7 @@ def flash_window_timing(torch, fa):
                                 "window"), shape[:8]), dtype="bfloat16"),
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
             "bound_by": bound_by, "library_ms": library_ms,
+            "tflops_counted": flash_flops(shape) / ms / 1e9,
             "library_call": "scaled_dot_product_attention(attn_mask=window "
                             "mask, enable_gqa=True)"}
 
@@ -710,7 +728,8 @@ PORT_KERNELS = {"flash_attention": "flash_fwd_kernel",
 def device_breakdown(torch, fn):
     """Run ``fn`` once under ``torch.profiler`` and split the device
     time of its kernels by name: matrix products, each of the port's
-    serving kernels, everything else; ``idle_share`` is 1 - device time
+    serving kernels (and its ``_share`` of the device time), everything
+    else; ``idle_share`` is 1 - device time
     / host wall time (the profiler's own overhead falls in the wall
     time). Returns None when the profiler shows no device time."""
     from torch.autograd import DeviceType
@@ -741,8 +760,10 @@ def device_breakdown(torch, fn):
         split[key] += ms
     device_ms = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    shares = {f"{k}_share": split[f"{k}_ms"] / device_ms
+              for k in PORT_KERNELS if split[f"{k}_ms"] > 0}
     return {"wall_ms": wall_ms, "device_ms": device_ms,
-            "device_kernels": n_kernels, **split,
+            "device_kernels": n_kernels, **split, **shares,
             "idle_share": max(0.0, 1.0 - device_ms / wall_ms),
             "top_kernels": [[n[:80], ms] for n, ms in top]}
 

@@ -11,9 +11,11 @@ probabilities are rounded to v's type before the PV product.
 
 :func:`flash_attention_torch` computes what the JAX package's
 ``kernels/ref.py::flash_attention_ref`` computes (float32 scores, the
--1e30 mask, softmax, probabilities cast to v's type). The CUDA kernel
+-1e30 mask, softmax, probabilities cast to v's type). The CUDA source
 ``csrc/flash_attention.cu`` runs the online softmax of the Pallas
-kernel; :func:`flash_attention_cuda` launches it.
+kernel: bfloat16 on the tensor cores (``wgmma``, K/V by TMA), float32
+on the CUDA cores; :func:`flash_attention_cuda` launches the one for
+q's type.
 """
 from __future__ import annotations
 

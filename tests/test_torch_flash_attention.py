@@ -3,10 +3,11 @@
 The plain PyTorch version ``flash_attention_torch`` is held against the
 Pallas kernel (``repro.kernels.ops.flash_attention``, interpret mode on
 the CPU) and the ``ref.flash_attention_ref`` oracle at the shapes of
-``tests/test_kernels.py::TestFlashAttention`` and at stablelm-12b's head
-layout, in float32 (tolerance 2e-5) and bfloat16 (2e-2, the JAX suite's
-tolerances: bf16 keeps 8 significant bits and the two sides round the
-output and the probabilities at different points). The port's
+``tests/test_kernels.py::TestFlashAttention`` and at the head layouts
+of stablelm-12b, nemotron-4-340b and recurrentgemma-9b, in float32
+(tolerance 2e-5) and bfloat16 (2e-2, the JAX suite's tolerances: bf16
+keeps 8 significant bits and the two sides round the output and the
+probabilities at different points). The port's
 ``attend`` is held against the JAX ``attend``, chunked path included.
 Inputs are drawn with numpy and rounded to the working type the same
 way on both sides. The CUDA kernel is held against the plain version
@@ -36,6 +37,10 @@ SHAPES = [
     (1, 100, 260, 4, 4, 32, True, 48, 0.0),     # padded + window
 ]
 STABLELM = (1, 256, 256, 32, 8, 160, True, 0, 0.0)   # G = 4, hd 160
+# the card kernel's other serving head layouts: nemotron-4-340b (G 12,
+# hd 192) and recurrentgemma-9b (MQA G 16, hd 256, local window)
+WIDE_HEADS = [(1, 256, 256, 24, 2, 192, True, 0, 0.0),
+              (1, 256, 256, 16, 1, 256, True, 128, 0.0)]
 DTYPES = {"float32": (jnp.float32, torch.float32, 2e-5),
           "bfloat16": (jnp.bfloat16, torch.bfloat16, 2e-2)}
 
@@ -84,6 +89,12 @@ def test_plain_matches_pallas_and_ref(shape, dtype):
 
 def test_plain_matches_pallas_at_stablelm_heads():
     check_plain_against_jax(STABLELM, "float32", seed=12)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", WIDE_HEADS)
+def test_plain_matches_pallas_at_wide_heads(shape, dtype):
+    check_plain_against_jax(shape, dtype, seed=shape[5])
 
 
 def test_ops_dispatch_on_cpu_is_the_plain_version():

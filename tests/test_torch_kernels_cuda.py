@@ -34,6 +34,10 @@ FLASH_SHAPES = [
     (1, 64, 200, 8, 2, 256, True, 33, 5.0),     # hd 256, window, softcap
     (2, 65, 65, 6, 2, 136, True, 0, 0.0),       # hd 136, ragged edges
     (1, 40, 40, 2, 1, 16, False, 8, 0.0),       # window without causal
+    (1, 256, 256, 24, 2, 192, True, 0, 0.0),    # nemotron heads, G 12
+    (1, 512, 512, 16, 1, 256, True, 128, 0.0),  # recurrentgemma heads
+    (2, 1000, 1000, 8, 2, 128, True, 0, 0.0),   # Sq*G % 128 != 0, many tiles
+    (1, 2048, 2048, 8, 2, 160, True, 0, 0.0),   # cycles the K/V ring
 ]
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 
@@ -79,6 +83,40 @@ def test_flash_dispatch_on_card_is_the_kernel(cuda_device):
     out = tops.flash_attention(q, k, v, causal=True)
     assert tops.LAUNCHES["flash_attention"] == before + 1
     assert torch.equal(out, tfa.flash_attention_cuda(q, k, v, causal=True))
+
+
+def flash_kernel_names(fn):
+    """Names of the device kernels ``fn`` launches that hold the
+    fragment ``flash_fwd_kernel``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {e.name for e in prof.events()
+            if e.device_type == DeviceType.CUDA
+            and "flash_fwd_kernel" in e.name}
+
+
+@pytest.mark.cuda
+def test_flash_bf16_runs_the_tensor_core_kernel(cuda_device):
+    """bf16 goes to the wgmma kernel, f32 to the CUDA-core one: one
+    profiled launch of each shows two different kernels, both under
+    the name fragment the serving profile books as flash."""
+    shape = (1, 256, 256, 8, 2, 160)
+    names = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = qkv(shape, dtype, cuda_device, 3)
+        tfa.flash_attention_cuda(q, k, v)          # built and warm
+        names[dtype] = flash_kernel_names(
+            lambda: tfa.flash_attention_cuda(q, k, v))
+    assert len(names[torch.float32]) == 1
+    assert len(names[torch.bfloat16]) == 1
+    assert names[torch.float32] != names[torch.bfloat16]
+    assert "wgmma" in next(iter(names[torch.bfloat16]))
+    assert "wgmma" not in next(iter(names[torch.float32]))
 
 
 @pytest.mark.cuda
