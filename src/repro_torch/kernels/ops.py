@@ -8,8 +8,8 @@ the kernel to the plain version.
 kernels (a plain integer each, raised by each CUDA wrapper once its
 launch has succeeded) so a run can show that its main path went through
 the kernel. When ``KERNEL_EVENTS`` is a list, each ``schedule_step``
-launch also appends the CUDA events that the wrapper records around its
-kernels (timing instrumentation; off by default).
+launch also appends the (start, end) CUDA events that the wrapper records
+around its one kernel (timing instrumentation; off by default).
 """
 from __future__ import annotations
 

@@ -31,8 +31,8 @@ from repro_torch.core.engine.placement import FIT_EPS
 from repro_torch.kernels import build
 
 _INF = float("inf")
-_TILE = 256          # jobs per block of the tile kernel (kTile)
-_MAX_NODES = 7680    # 6*M floats + 43 KB staging in 227 KB of smem
+_TILE = 256          # jobs per tile of the kernel (kTile)
+_MAX_NODES = 7680    # nodes the kernel takes (it stages 640 at a time)
 
 
 class SchedulePass(NamedTuple):
@@ -115,8 +115,7 @@ def schedule_step_torch(demand, gp, width, queue_key, assign, free,
                         be_pick.to(torch.int32), nskip)
 
 
-_ARGTYPES = [ctypes.c_void_p] * 22 + [ctypes.c_int] * 3 \
-    + [ctypes.c_void_p] * 2
+_ARGTYPES = [ctypes.c_void_p] * 22 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
 
 
 def _lib() -> ctypes.CDLL:
@@ -141,15 +140,14 @@ def schedule_step_cuda(demand, gp, width, queue_key, assign, free,
                        pending_free, cand, under, be_q, te_demand,
                        node_cap, max_sz, max_gp, s, *,
                        events=None) -> SchedulePass:
-    """Launch the CUDA kernel (``csrc/schedule_step.cu``) on the
-    current stream; same contract as :func:`schedule_step_torch`.
-    Unbatched inputs get a batch axis of 1 and lose it on return.
-    Raises on inputs the kernel does not take and on a failed launch;
-    it never falls back to the plain version. When ``events`` is a
-    list, a (start, mid, end) triple of CUDA events is appended to it:
-    recorded right before the tile kernel, between the tile and the
-    finalize kernel, and right after the finalize kernel (kernel
-    timing)."""
+    """Launch the CUDA kernel (``csrc/schedule_step.cu``, one
+    cooperative launch a pass) on the current stream; same contract as
+    :func:`schedule_step_torch`. Unbatched inputs get a batch axis of 1
+    and lose it on return. Raises on inputs the kernel does not take and
+    on a failed launch (a refused cooperative launch included); it never
+    falls back to the plain version. When ``events`` is a list, a
+    (start, end) pair of CUDA events recorded right around the launch is
+    appended to it (kernel timing)."""
     batched = demand.dim() == 3
     if not batched:
         demand, gp, width, queue_key, assign, free, pending_free, cand, \
@@ -188,14 +186,14 @@ def schedule_step_cuda(demand, gp, width, queue_key, assign, free,
             raise ValueError(f"schedule_step_cuda: {name} is on {x.device},"
                              f" demand on {dev}")
 
-    nb = (J + _TILE - 1) // _TILE
+    n_tiles = (J + _TILE - 1) // _TILE
     scores = torch.empty((B, J), dtype=torch.float32, device=dev)
     fits = torch.empty((B, J, M), dtype=torch.int32, device=dev)
     fit_now = torch.empty((B, J), dtype=torch.int32, device=dev)
     fit_pend = torch.empty((B, J), dtype=torch.int32, device=dev)
     out = torch.empty((B, 4), dtype=torch.int32, device=dev)
-    part_val = torch.empty((B, nb, 3), dtype=torch.float32, device=dev)
-    part_idx = torch.empty((B, nb, 3), dtype=torch.int32, device=dev)
+    part_val = torch.empty((B, n_tiles, 3), dtype=torch.float32, device=dev)
+    part_idx = torch.empty((B, n_tiles, 3), dtype=torch.int32, device=dev)
     lib = _lib()
     ptrs = [x.data_ptr() for x in (
         demand, gp, width, queue_key, assign, free, pending_free, cand,
@@ -203,20 +201,14 @@ def schedule_step_cuda(demand, gp, width, queue_key, assign, free,
         fit_now, fit_pend, out, part_val, part_idx)]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev)
-        mid_event = None
         if events is not None:
-            start, mid, end = (torch.cuda.Event(enable_timing=True)
-                               for _ in range(3))
-            # recording creates the event; the launch records it again
-            # between its two kernels
-            mid.record(stream)
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
             start.record(stream)
-            mid_event = mid.cuda_event
-        err = lib.schedule_step_launch(*ptrs, B, J, M, stream.cuda_stream,
-                                       mid_event)
+        err = lib.schedule_step_launch(*ptrs, B, J, M, stream.cuda_stream)
         if events is not None:
             end.record(stream)
-            events.append((start, mid, end))
+            events.append((start, end))
     if err != 0:
         raise RuntimeError(f"schedule_step kernel launch failed with CUDA "
                            f"error {err}")

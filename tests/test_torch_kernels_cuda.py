@@ -10,7 +10,15 @@ JAX suite's tolerances): the kernel and the plain version sum in other
 orders, and in bf16 they round the probabilities at other points (the
 kernel before normalising, the plain version after). ``ssd_chunk`` and
 ``lru_scan`` are held to the JAX suite's scan tolerances, 1e-4 in
-float32 and 5e-2 in bfloat16."""
+float32 and 5e-2 in bfloat16 (``ssd_chunk`` runs its products as
+3xTF32 on the tensor cores: another order of sums and a residual of
+about 2^-21 of an operand). ``schedule_step`` is bit-equal to its plain
+version on all 8 fields."""
+import json
+import os
+import subprocess
+import sys
+
 import numpy as np
 import pytest
 import torch
@@ -18,6 +26,7 @@ import torch
 from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import lru_scan as tls
 from repro_torch.kernels import ops as tops
+from repro_torch.kernels import schedule_step as tss
 from repro_torch.kernels import ssd_chunk as tsc
 
 # (B, Sq, Skv, H, KV, hd, causal, window, softcap)
@@ -85,19 +94,45 @@ def test_flash_dispatch_on_card_is_the_kernel(cuda_device):
     assert torch.equal(out, tfa.flash_attention_cuda(q, k, v, causal=True))
 
 
-def flash_kernel_names(fn):
-    """Names of the device kernels ``fn`` launches that hold the
-    fragment ``flash_fwd_kernel``."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+_PROFILE_ONE_CALL = """
+import json, sys
+sys.path[:0] = {paths!r}
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+from test_torch_kernels_cuda import *
+dev = torch.device("cuda")
+{setup}
+fn()                                  # built and warm
+torch.cuda.synchronize()
+with profile(activities=[ProfilerActivity.CPU,
+                         ProfilerActivity.CUDA]) as prof:
+    fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return {e.name for e in prof.events()
-            if e.device_type == DeviceType.CUDA
-            and "flash_fwd_kernel" in e.name}
+print(json.dumps([e.name for e in prof.events()
+                  if e.device_type == DeviceType.CUDA]))
+"""
+
+
+def device_kernels(setup):
+    """Names of the device kernels that one call of ``fn`` launches, one
+    entry a launch, from ``torch.profiler`` in a fresh process: a second
+    profiling session in one process can miss a single short kernel's
+    device record. ``setup`` is Python source that defines ``fn`` (this
+    module's names and ``dev`` are in scope)."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    code = _PROFILE_ONE_CALL.format(
+        paths=[os.path.join(root, "src"), os.path.join(root, "tests")],
+        setup=setup)
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=600, check=True)
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+def flash_kernel_names(setup):
+    """Names of the device kernels one call of ``fn`` (defined by
+    ``setup``) launches that hold the fragment ``flash_fwd_kernel``."""
+    return {n for n in device_kernels(setup) if "flash_fwd_kernel" in n}
 
 
 @pytest.mark.cuda
@@ -108,10 +143,9 @@ def test_flash_bf16_runs_the_tensor_core_kernel(cuda_device):
     shape = (1, 256, 256, 8, 2, 160)
     names = {}
     for dtype in (torch.float32, torch.bfloat16):
-        q, k, v = qkv(shape, dtype, cuda_device, 3)
-        tfa.flash_attention_cuda(q, k, v)          # built and warm
         names[dtype] = flash_kernel_names(
-            lambda: tfa.flash_attention_cuda(q, k, v))
+            f"q, k, v = qkv({shape}, {dtype}, dev, 3)\n"
+            "fn = lambda: tfa.flash_attention_cuda(q, k, v)")
     assert len(names[torch.float32]) == 1
     assert len(names[torch.bfloat16]) == 1
     assert names[torch.float32] != names[torch.bfloat16]
@@ -181,6 +215,19 @@ def test_ssd_chunk_kernel_matches_plain(cuda_device, shape, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_chunk_runs_the_tensor_core_kernel(cuda_device, dtype):
+    """One ssd_chunk_cuda call is one launch of the wgmma (3xTF32)
+    kernel, under the name fragment the serving profile books as
+    ssd_chunk."""
+    names = device_kernels(
+        f"args = ssd_args((2, 512, 4, 64, 128, True), {dtype}, dev, 4)\n"
+        "fn = lambda: tsc.ssd_chunk_cuda(*args)")
+    assert len(names) == 1
+    assert "ssd_chunk_kernel_wgmma" in names[0]
+
+
+@pytest.mark.cuda
 def test_ssd_chunk_masks_above_the_diagonal(cuda_device):
     """Strongly decaying loga makes z_i - z_j large and positive above
     the diagonal (exp overflows there); the kernel's output stays
@@ -245,3 +292,101 @@ def test_scan_kernels_refuse_what_they_do_not_take(cuda_device):
         tls.lru_scan_cuda(a.transpose(1, 2), a.transpose(1, 2))
     with pytest.raises(ValueError, match="h0"):
         tls.lru_scan_cuda(a, a, torch.zeros((2, 15), device=cuda_device))
+
+
+# schedule_step: chip_smoke.py's KERNEL_SHAPES (B, J, M), then odd node
+# counts and ragged tiles (the kernel's unaligned-slab and scalar-store
+# paths), then more nodes than the 640 the kernel stages at a time, up
+# to the wrapper's limit (7680)
+SCHED_SHAPES = [(b, j, m) for b in (1, 4) for j in (5, 1000, 65536)
+                for m in (8, 84)] + [(3, 777, 13), (2, 300, 33)] \
+    + [(2, 300, 641), (1, 513, 1283), (1, 1000, 7680)]
+
+
+def sched_args(B, J, M, device, seed, empty=False):
+    """Stacked (B, ...) schedule_step arguments on the card, drawn with
+    numpy like the JAX suite's integer tiles (single and 2-node gang
+    assignments, mixed masks, random queue keys); normalizers and s
+    per batch row."""
+    rng = np.random.default_rng(seed)
+    f32 = np.float32
+    node = rng.integers(0, M, (B, J))
+    gang = rng.random((B, J)) < 0.3
+    assign = np.zeros((B, J, M), bool)
+    bi, ji = np.meshgrid(np.arange(B), np.arange(J), indexing="ij")
+    assign[bi, ji, node] = True
+    assign[bi[gang], ji[gang], (node[gang] + 1) % M] = True
+    arrays = dict(
+        demand=np.stack([rng.integers(1, 33, (B, J)),
+                         rng.integers(1, 257, (B, J)),
+                         rng.integers(0, 9, (B, J))], -1).astype(f32),
+        gp=rng.integers(0, 21, (B, J)).astype(f32),
+        width=np.where(gang, 2, 1).astype(np.int32),
+        queue_key=(rng.random((B, J)) * 100.0).astype(f32),
+        assign=assign,
+        free=np.stack([rng.integers(0, 16, (B, M)),
+                       rng.integers(0, 128, (B, M)),
+                       rng.integers(0, 5, (B, M))], -1).astype(f32),
+        pending_free=np.stack([rng.integers(0, 8, (B, M)),
+                               rng.integers(0, 64, (B, M)),
+                               rng.integers(0, 3, (B, M))], -1).astype(f32),
+        cand=rng.random((B, J)) < 0.7, under=rng.random((B, J)) < 0.9,
+        be_q=rng.random((B, J)) < 0.4,
+        te_demand=np.tile(np.array([4.0, 16.0, 4.0], f32), (B, 1)),
+        node_cap=np.tile(np.array([32.0, 256.0, 8.0], f32), (B, 1)))
+    if empty:
+        for k in ("cand", "under", "be_q"):
+            arrays[k][:] = False
+    args = [torch.from_numpy(a).to(device) for a in arrays.values()]
+    norms = [tops.normalizers(args[0][b], args[1][b], args[7][b],
+                              args[11][b]) for b in range(B)]
+    return args + [torch.stack([n[0] for n in norms]),
+                   torch.stack([n[1] for n in norms]),
+                   torch.full((B,), 4.0, device=device)]
+
+
+def assert_pass_equal(args):
+    """One kernel call bit-equal to the plain version on all 8 fields,
+    counted as one launch."""
+    before = tops.LAUNCHES["schedule_step"]
+    got = tss.schedule_step_cuda(*args)
+    want = tss.schedule_step_torch(*args)
+    torch.cuda.synchronize()
+    assert tops.LAUNCHES["schedule_step"] == before + 1
+    for name, x, y in zip(tss.SchedulePass._fields, got, want):
+        assert x.dtype == y.dtype and x.shape == y.shape, name
+        assert torch.equal(x, y), name
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", SCHED_SHAPES)
+def test_schedule_step_kernel_matches_plain(cuda_device, shape):
+    assert_pass_equal(sched_args(*shape, cuda_device, seed=sum(shape)))
+
+
+@pytest.mark.cuda
+def test_schedule_step_empty_masks_give_sentinels(cuda_device):
+    got = assert_pass_equal(sched_args(2, 1000, 84, cuda_device, seed=7,
+                                       empty=True))
+    for name in ("victim", "be_head", "be_pick"):
+        assert (getattr(got, name) == -1).all(), name
+    assert (got.nskip == 0).all()
+
+
+@pytest.mark.cuda
+def test_schedule_step_beyond_one_resident_wave(cuda_device):
+    """2^20 jobs are 4,096 tiles, more than the cooperative grid's
+    resident blocks, so each block walks several tiles (and keeps the
+    late keys of the first few only)."""
+    assert_pass_equal(sched_args(1, 2 ** 20, 84, cuda_device, seed=11))
+
+
+@pytest.mark.cuda
+def test_schedule_step_is_one_kernel_a_call(cuda_device):
+    for B in (1, 4):
+        names = device_kernels(
+            f"args = sched_args({B}, 65536, 84, dev, seed={B})\n"
+            "fn = lambda: tss.schedule_step_cuda(*args)")
+        assert len(names) == 1, names
+        assert "schedule_step_kernel" in names[0]

@@ -115,3 +115,71 @@ def test_cpu_path_launches_no_kernel_and_wrapper_refuses_cpu():
     assert tops.LAUNCHES == before
     with pytest.raises(ValueError, match="CUDA"):
         tsc.ssd_chunk_cuda(*args)
+
+
+# ---- why the CUDA kernel is held to 1e-4 and not bit for bit ----
+# The kernel (csrc/ssd_chunk.cu) runs both products on the tensor cores
+# as 3xTF32: v = hi + lo with hi = tf32(v), lo = tf32(v - hi), and
+# a.b ~ a_hi.b_hi + a_hi.b_lo + a_lo.b_hi. The card's TF32 rounding
+# (cvt.rna: to 10 mantissa bits, ties away from zero) is emulated here
+# on float32 bit patterns.
+
+def tf32_rna(x: torch.Tensor) -> torch.Tensor:
+    """float32 rounded to TF32 (10 mantissa bits, ties away from zero),
+    as cvt.rna.tf32.f32 rounds it; finite inputs."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def tf32_split(x):
+    hi = tf32_rna(x)
+    return hi, tf32_rna(x - hi)
+
+
+def chunk_decay(loga):
+    """Λ[i, j, h] = exp(z_i - z_j) for j <= i, else 0, z = cumsum(loga)
+    in loga's type; loga (Q, H)."""
+    z = torch.cumsum(loga, 0)
+    Q = loga.shape[0]
+    causal = torch.ones((Q, Q), dtype=torch.bool).tril()[:, :, None]
+    return torch.where(causal, torch.exp(z[:, None] - z[None]), 0.0)
+
+
+def tensor_core_chunk(xdt, loga, Bm, Cm, passes):
+    """One chunk of y = (C Bᵀ ∘ Λ) x, both products as the kernel takes
+    them: 3 TF32 products (passes=3) or one (passes=1), float32 sums;
+    inputs (Q, H, ·) float32."""
+    decay = chunk_decay(loga)
+    ch, cl = tf32_split(Cm)
+    bh, bl = tf32_split(Bm)
+    S = torch.einsum("qhn,shn->qsh", ch, bh)
+    if passes == 3:
+        S = S + torch.einsum("qhn,shn->qsh", ch, bl) \
+            + torch.einsum("qhn,shn->qsh", cl, bh)
+    wh, wl = tf32_split(S * decay)
+    xh, xl = tf32_split(xdt)
+    y = torch.einsum("qsh,shp->qhp", wh, xh)
+    if passes == 3:
+        y = y + torch.einsum("qsh,shp->qhp", wh, xl) \
+            + torch.einsum("qsh,shp->qhp", wl, xh)
+    return y
+
+
+@pytest.mark.parametrize("passes", [3, 1])
+def test_tensor_core_split_and_the_f32_tolerance(passes):
+    """At mamba2's widths (P 64, N 128, one 256-long chunk) and the
+    serving draws (0.3 * normal, -softplus(normal)), 3xTF32 in float32
+    lands within the f32 tolerance 1e-4 of the float64 result (here
+    about 1.5e-5, most of it the float32 cumsum and exp that the plain
+    version shares), and a single TF32 pass does not (about 1.5e-3):
+    the kernel needs the split, and with it still sums in another order
+    than the plain version, so it is held to 1e-4 and not bit for
+    bit."""
+    xdt, loga, Bm, Cm = (torch.from_numpy(a[0]) for a in
+                         make_inputs(1, 256, 4, 64, 128, seed=0))
+    got = tensor_core_chunk(xdt, loga, Bm, Cm, passes).double()
+    x64, l64, b64, c64 = (t.double() for t in (xdt, loga, Bm, Cm))
+    want = torch.einsum("qsh,shp->qhp", torch.einsum(
+        "qhn,shn->qsh", c64, b64) * chunk_decay(l64), x64)
+    within = ((got - want).abs() <= 1e-4 + 1e-4 * want.abs()).all()
+    assert bool(within) == (passes == 3)
