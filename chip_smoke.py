@@ -8,9 +8,13 @@ Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``
 against its plain PyTorch version on the card, and drives the port's
 two main paths through the entry points a user calls:
 
-* the FitGpp engine: the engine's kernel path against its plain path,
-  then the paper's FIFO-vs-FitGpp comparison at the paper's scale (84
-  nodes, 2**16 jobs) through ``repro_torch.api.compare_policies``;
+* the FitGpp engine: the engine's kernel path against its plain path
+  (paper-synthetic, the gang scenarios for every policy, gangs with
+  backfill), then the paper's FIFO-vs-FitGpp comparison at the paper's
+  scale (84 nodes, 2**16 jobs) through
+  ``repro_torch.api.compare_policies``, then gang-heavy on the same 84
+  nodes (2**15 jobs) under fifo, fitgpp and fitgpp with backfill
+  through ``repro_torch.api.run_experiment``;
 * dense-LM serving: stablelm-12b at its published widths and full depth
   (40 layers, bf16, random weights from seed 0) prefills 4 prompts of
   2048 tokens through the flash-attention kernel and decodes 32 tokens
@@ -57,8 +61,26 @@ KERNEL_SHAPES = [(b, j, m) for b in (1, 4) for j in (5, 1000, 65536)
 # more tiles than one resident wave of the cooperative grid holds, so
 # its blocks walk several tiles each
 KERNEL_WIDE_SHAPE = (1, 2 ** 20, 84)
-# the most nodes the kernel takes, above the 640 it stages at a time
-KERNEL_NODES_SHAPE = (1, 1000, 7680)
+# more nodes than the 640 a tile stages at a time: 7680 and beyond it,
+# 12345 being no multiple of 640
+KERNEL_NODES_SHAPES = [(1, 1000, 7680), (1, 1024, 8192), (1, 512, 20000),
+                       (2, 300, 12345)]
+# timed above 640 nodes (also held bit-equal): 4 tiles of jobs, fewer
+# than the SMs
+KERNEL_MANY_NODES_TIMED = (1, 1024, 8192)
+# engine kernel path == plain path: the gang scenarios at the paper's 84
+# nodes, and the trace fixtures (26-28 jobs) on 3 nodes, where they
+# preempt; every policy, event mode
+GANG_SCENARIOS = ("gang-heavy", "gang-trace-mix", "philly-sample",
+                  "pai-sample")
+GANG_ENGINE_JOBS = 384
+# phase gang: the paper's 84 nodes with half its backlog; at 2**16 jobs
+# the whole script took 902 s of its 1200 s limit on a slow host
+GANG_JOBS = 2 ** 15
+# phase gang's pass shape, held bit-equal in phase kernel twice: as a
+# queue pass, and built like fitgpp's gang-score pass
+KERNEL_GANG_SHAPE = (1, GANG_JOBS, PAPER_NODES)
+ENGINE_POLICIES = ("fifo", "fitgpp", "minsize", "lrtp", "srtp", "rand")
 # flash attention: the JAX suite's shapes (tests/test_kernels.py) and
 # more, each in f32 and bf16, (B, Sq, Skv, H, KV, hd, causal, window, softcap)
 FLASH_SHAPES = [
@@ -156,12 +178,34 @@ def rand_instance(np, J, M, seed):
         node_cap=np.array([32.0, 256.0, 8.0], f32))
 
 
-def batched_args(torch, np, B, J, M, seed, empty=False):
+def gang_score_instance(np, J, M, seed):
+    """Arguments like fitgpp's gang-score pass (``sim_torch``'s
+    ``gang_score``): jobs of width 1, 2, 4 or 8 on as many consecutive
+    nodes, each job's total demand (demand * width), live cand and under
+    masks, no BE queue and a zero TE demand."""
+    inst = rand_instance(np, J, M, seed)
+    rng = np.random.default_rng(seed + 1000)
+    width = rng.choice(np.array([1, 2, 4, 8], np.int32), J)
+    cols = (rng.integers(0, M, J)[:, None] + np.arange(8)) % M
+    keep = np.arange(8) < width[:, None]
+    assign = np.zeros((J, M), bool)
+    assign[np.nonzero(keep)[0], cols[keep]] = True
+    inst.update(width=width, assign=assign,
+                demand=inst["demand"] * width[:, None].astype(np.float32),
+                be_q=np.zeros(J, bool),
+                te_demand=np.zeros(3, np.float32))
+    return inst
+
+
+def batched_args(torch, np, B, J, M, seed, kind="rand"):
     """Stacked (B, ...) kernel arguments on the card, normalizers and
-    s included."""
+    s included. ``kind``: "rand" (:func:`rand_instance`), "empty" (its
+    cand, under and be_q all False) or "gang_score"
+    (:func:`gang_score_instance`)."""
     from repro_torch.kernels import ops
-    insts = [rand_instance(np, J, M, seed + b) for b in range(B)]
-    if empty:
+    make = gang_score_instance if kind == "gang_score" else rand_instance
+    insts = [make(np, J, M, seed + b) for b in range(B)]
+    if kind == "empty":
         for inst in insts:
             for k in ("cand", "under", "be_q"):
                 inst[k][:] = False
@@ -280,16 +324,20 @@ def phase_build():
 
 def phase_kernel(torch, np, shapes=KERNEL_SHAPES):
     """Kernel against plain version, all 8 fields bit-equal, at
-    KERNEL_SHAPES, an empty-mask case, KERNEL_WIDE_SHAPE and
-    KERNEL_NODES_SHAPE; each call counted as one launch, and the device
-    kernels of one call at the timed shape counted by the profiler."""
+    KERNEL_SHAPES, an empty-mask case, KERNEL_WIDE_SHAPE,
+    KERNEL_NODES_SHAPES, KERNEL_MANY_NODES_TIMED and KERNEL_GANG_SHAPE
+    (a random pass and a gang-score pass); each call counted as one
+    launch, and the device kernels of one call at the timed shape
+    counted by the profiler."""
     from repro_torch.kernels import schedule_step as ss
-    cases = [(b, j, m, False) for b, j, m in shapes] \
-        + [(1, 1000, 84, True), (*KERNEL_WIDE_SHAPE, False),
-           (*KERNEL_NODES_SHAPE, False)]
+    cases = [(b, j, m, "rand") for b, j, m in shapes] \
+        + [(1, 1000, 84, "empty"), (*KERNEL_WIDE_SHAPE, "rand")] \
+        + [(*shape, "rand") for shape in KERNEL_NODES_SHAPES] \
+        + [(*KERNEL_MANY_NODES_TIMED, "rand"), (*KERNEL_GANG_SHAPE, "rand"),
+           (*KERNEL_GANG_SHAPE, "gang_score")]
     max_err = 0.0
-    for seed, (B, J, M, empty) in enumerate(cases):
-        args = batched_args(torch, np, B, J, M, seed, empty)
+    for seed, (B, J, M, kind) in enumerate(cases):
+        args = batched_args(torch, np, B, J, M, seed, kind)
         before = ss.build.LAUNCHES["schedule_step"]
         k = ss.schedule_step_cuda(*args)
         check(ss.build.LAUNCHES["schedule_step"] == before + 1,
@@ -317,6 +365,17 @@ def phase_kernel(torch, np, shapes=KERNEL_SHAPES):
     plain_idle_ms = time_ms(torch, lambda: ss.schedule_step_torch(*args),
                             queued=False)
     bound, bound_by = bound_ms(B, J, M, int(args[4].sum()))
+    del args
+    shape = KERNEL_MANY_NODES_TIMED
+    nodes_args = batched_args(torch, np, *shape, 98)
+    many_nodes = {
+        "shape": dict(zip("BJM", shape)),
+        "ms": time_kernel_ms(torch, ss, nodes_args),
+        "plain_ms": time_ms(torch, lambda: ss.schedule_step_torch(
+            *nodes_args)),
+        "bound_ms": bound_ms(*shape, int(nodes_args[4].sum()))[0]}
+    del nodes_args
+    free_cuda(torch)
     result = {"name": "schedule_step", "route": "cuda",
               "source": "src/repro_torch/kernels/csrc/schedule_step.cu",
               "replaces": "src/repro/kernels/schedule_step.py:233",
@@ -325,47 +384,100 @@ def phase_kernel(torch, np, shapes=KERNEL_SHAPES):
               "kernels_per_pass": len(per_pass),
               "kernels_of_one_pass": per_pass,
               "wrapper_idle_ms": wrapper_ms, "plain_idle_ms": plain_idle_ms,
+              "many_nodes": many_nodes,
               "timed_shape": {"B": B, "J": J, "M": M}}
     emit({"phase": "kernel", "cases": len(cases), "all_equal": True,
+          "gang_cases": {"shape": dict(zip("BJM", KERNEL_GANG_SHAPE)),
+                         "kinds": ["rand", "gang_score"]},
           "tolerance": "bit-exact, all 8 fields", **result})
     return result
 
 
-def phase_engine(torch, n_jobs=ENGINE_JOBS):
-    """The engine's kernel path against its plain path on the card (same
-    generator seed, full State equal, generator included), and the card
-    against the CPU plain path on a small contended input."""
-    from repro_torch import api, scenarios
+def kernel_vs_plain(torch, cfg, jobs, what):
+    """Run ``cfg`` on ``jobs`` (on the card) along the kernel path and
+    along the plain path; the two final States must be equal field for
+    field, the generator included. Returns the kernel path's State (as
+    numpy), the two wall times and the kernel path's launches."""
     from repro_torch.core import sim_torch
     from repro_torch.kernels import ops
+    out = {}
+    launches = 0
+    for path, force in (("kernel", False), ("plain", True)):
+        ops._FORCE_PLAIN = force
+        try:
+            before = ops.LAUNCHES["schedule_step"]
+            t0 = time.perf_counter()
+            st = sim_torch.run(cfg, jobs, cfg.seed)
+            torch.cuda.synchronize()
+            out[path] = (sim_torch.state_to_numpy(st),
+                         time.perf_counter() - t0)
+            if not force:
+                launches = ops.LAUNCHES["schedule_step"] - before
+        finally:
+            ops._FORCE_PLAIN = False
+    diff = sim_torch.state_diff_fields(out["kernel"][0], out["plain"][0])
+    check(not diff, f"{what}: kernel-path State differs from the plain "
+          f"path in {diff}")
+    st = out["kernel"][0]
+    check(int(st["n_done"]) == len(st["state"]), f"{what}: run did not "
+          "finish")
+    check(launches > 0, f"{what}: the kernel path launched no kernel")
+    return st, out["kernel"][1], out["plain"][1], launches
+
+
+def phase_engine(torch, n_jobs=ENGINE_JOBS):
+    """The engine's kernel path against its plain path on the card (same
+    generator seed, full State equal, generator included): paper-
+    synthetic; the gang scenarios under every policy; gang-heavy with
+    backfill. Then the card against the CPU plain path on a small
+    contended input."""
+    from repro_torch import api, scenarios
+    from repro_torch.core import sim_torch
     cfg = api.make_config("fifo", n_jobs=n_jobs, n_nodes=PAPER_NODES,
                           seed=0)
     jobs = sim_torch.jobs_from_jobset(scenarios.build("paper-synthetic",
                                                       cfg), "cuda")
     for policy in ("fitgpp", "lrtp"):
-        pcfg = dataclasses.replace(cfg, policy=policy)
-        out = {}
-        for path, force in (("kernel", False), ("plain", True)):
-            ops._FORCE_PLAIN = force
-            try:
-                t0 = time.perf_counter()
-                st = sim_torch.run(pcfg, jobs, cfg.seed)
-                torch.cuda.synchronize()
-                out[path] = (sim_torch.state_to_numpy(st),
-                             time.perf_counter() - t0)
-            finally:
-                ops._FORCE_PLAIN = False
-        diff = sim_torch.state_diff_fields(out["kernel"][0], out["plain"][0])
-        check(not diff, f"{policy}: kernel-path State differs from the "
-              f"plain path in {diff}")
-        st = out["kernel"][0]
-        check(int(st["n_done"]) == n_jobs, f"{policy}: run did not finish")
+        st, k_s, p_s, _ = kernel_vs_plain(
+            torch, dataclasses.replace(cfg, policy=policy), jobs, policy)
         emit({"phase": "engine_kernel_vs_plain", "policy": policy,
               "n_jobs": n_jobs, "equal": True,
               "fallback_count": int(st["fallback_count"]),
               "preemptions": int(st["preempt_count"].sum()),
-              "kernel_path_s": out["kernel"][1],
-              "plain_path_s": out["plain"][1]})
+              "kernel_path_s": k_s, "plain_path_s": p_s})
+    t0 = time.perf_counter()
+    cases = []
+    for scenario in GANG_SCENARIOS:
+        for n_nodes in ((PAPER_NODES, 3) if "sample" in scenario
+                        else (PAPER_NODES,)):
+            gcfg = api.make_config("fifo", n_jobs=GANG_ENGINE_JOBS,
+                                   n_nodes=n_nodes, seed=0)
+            js = scenarios.build(scenario, gcfg)
+            gjobs = sim_torch.jobs_from_jobset(js, "cuda")
+            runs = [(p, False) for p in ENGINE_POLICIES]
+            if scenario == "gang-heavy":
+                runs += [("srtp", True), ("fitgpp", True)]
+            for policy, backfill in runs:
+                what = f"{scenario}/{n_nodes} nodes/{policy}" \
+                    + ("/backfill" if backfill else "")
+                st, k_s, p_s, launches = kernel_vs_plain(
+                    torch, dataclasses.replace(gcfg, policy=policy,
+                                               backfill=backfill),
+                    gjobs, what)
+                cases.append({
+                    "scenario": scenario, "n_nodes": n_nodes,
+                    "n_jobs": js.n, "gangs": int((js.n_nodes > 1).sum()),
+                    "policy": policy, "backfill": backfill,
+                    "preemptions": int(st["preempt_count"].sum()),
+                    "fallback_count": int(st["fallback_count"]),
+                    "launches": launches, "kernel_path_s": k_s,
+                    "plain_path_s": p_s})
+    check(any(c["preemptions"] > 0 and c["n_jobs"] < 100 for c in cases),
+          "no trace-fixture case preempted")
+    emit({"phase": "engine_gang_kernel_vs_plain", "equal": True,
+          "cases": len(cases), "seconds": time.perf_counter() - t0,
+          "preempting_cases": sum(c["preemptions"] > 0 for c in cases),
+          "runs": cases})
     # small contended input: the card's kernel path against the CPU
     # plain path (no fallback draw fires here, so the two generators
     # never decide anything)
@@ -431,6 +543,86 @@ def phase_paper(torch, np, n_jobs=PAPER_JOBS):
           "be_p95_worsening": fit["BE"]["p95"] / fifo["BE"]["p95"] - 1.0,
           "policies": per_policy})
     check(te_cut >= 0.80, f"TE p95 cut {te_cut:.1%} < 80%")
+    return launches
+
+
+def phase_gang(torch, np, n_jobs=GANG_JOBS):
+    """The gang workload on the paper's cluster: gang-heavy (half the
+    jobs gangs of 2, 4 or 8 nodes) on 84 nodes, closed-loop load 2.0,
+    seed 0, event mode, under fifo, fitgpp and fitgpp with backfill,
+    through ``api.run_experiment`` on one shared JobSet."""
+    from repro_torch import api, scenarios
+    from repro_torch.kernels import ops
+    cfg = api.make_config("fifo", n_jobs=n_jobs, n_nodes=PAPER_NODES,
+                          seed=0)
+    t0 = time.perf_counter()
+    js = scenarios.build("gang-heavy", cfg)
+    build_s = time.perf_counter() - t0
+    zero_launches()
+    ops.KERNEL_EVENTS = []
+    t0 = time.perf_counter()
+    runs = {}
+    try:
+        for name, policy, backfill in (("fifo", "fifo", False),
+                                       ("fitgpp", "fitgpp", False),
+                                       ("fitgpp_backfill", "fitgpp", True)):
+            r = api.run_experiment("gang-heavy", policy, cfg=cfg, jobs=js,
+                                   backfill=backfill, mode="event")
+            runs[name] = (policy, backfill, r)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        kernel_ms = [s.elapsed_time(e) for s, e in ops.KERNEL_EVENTS]
+    finally:
+        ops.KERNEL_EVENTS = None
+    launches = ops.LAUNCHES["schedule_step"]
+    check(launches == len(kernel_ms) == sum(r.raw.launches for _, _, r
+                                            in runs.values()),
+          "gang launches do not add up")
+    k0 = 0
+    for name, (policy, backfill, r) in runs.items():
+        st = r.raw.state
+        check(st.n_done == n_jobs, f"gang {name}: {st.n_done} of {n_jobs} "
+              "jobs done")
+        check(bool((st.finish >= 0).all()), f"gang {name}: unfinished jobs")
+        check(all(np.isfinite(v) for t in r.table.values()
+                  for v in t.values()), f"gang {name}: non-finite "
+              "slowdown percentiles")
+        # every acting tick runs at least one schedule pass, each one
+        # launch of the kernel
+        check(r.raw.acting_ticks > 0
+              and r.raw.launches >= r.raw.acting_ticks,
+              f"gang {name}: {r.raw.launches} launches for "
+              f"{r.raw.acting_ticks} acting ticks")
+        k1 = k0 + r.raw.launches
+        run_kernel_ms = sum(kernel_ms[k0:k1])
+        k0 = k1
+        runs[name] = {
+            "policy": policy, "backfill": backfill,
+            "TE": r.table["TE"], "BE": r.table["BE"],
+            "fallback_count": r.fallback_count,
+            "preemptions": int(st.preempt_count.sum()),
+            "preempted_frac": r.preempted_frac, "makespan": r.makespan,
+            "wall_s": r.raw.seconds, "iterations": r.raw.iterations,
+            "acting_ticks": r.raw.acting_ticks, "launches": r.raw.launches,
+            "kernel_ms": run_kernel_ms,
+            "kernel_share": run_kernel_ms / 1e3 / r.raw.seconds,
+            "all_finished": True}
+    fifo = runs["fifo"]
+
+    def vs_fifo(run):
+        return {"te_p95_cut": 1.0 - run["TE"]["p95"] / fifo["TE"]["p95"],
+                "be_p50_worsening": run["BE"]["p50"] / fifo["BE"]["p50"]
+                - 1.0,
+                "be_p95_worsening": run["BE"]["p95"] / fifo["BE"]["p95"]
+                - 1.0}
+
+    emit({"phase": "gang", "scenario": "gang-heavy", "n_jobs": n_jobs,
+          "n_nodes": PAPER_NODES, "gangs": int((js.n_nodes > 1).sum()),
+          "build_s": build_s, "wall_s": wall, "launches": launches,
+          "kernel_ms_total": sum(kernel_ms), "kernel_events_in_wall": True,
+          "fitgpp_vs_fifo": vs_fifo(runs["fitgpp"]),
+          "fitgpp_backfill_vs_fifo": vs_fifo(runs["fitgpp_backfill"]),
+          "runs": runs})
     return launches
 
 
@@ -1551,8 +1743,8 @@ def phase_serve_family_card_vs_cpu(torch, arch, prompt_len=80):
 
 
 PHASES = ("build", "kernel", "flash_kernel", "ssd_kernel", "lru_kernel",
-          "engine", "paper", "serve", "serve_f32", "serve_card_vs_cpu",
-          "serve_ssm", "serve_hybrid")
+          "engine", "paper", "gang", "serve", "serve_f32",
+          "serve_card_vs_cpu", "serve_ssm", "serve_hybrid")
 
 
 def main(argv=None) -> int:
@@ -1591,6 +1783,9 @@ def main(argv=None) -> int:
         launches = {}         # kernel -> {main path: launches}
         if "paper" in phases:
             launches["schedule_step"] = {"paper": phase_paper(torch, np)}
+        if "gang" in phases:
+            launches.setdefault("schedule_step", {})["gang"] = \
+                phase_gang(torch, np)
         if "serve" in phases:
             launches["flash_attention"] = {"serve": phase_serve(torch)}
         if "serve_f32" in phases:

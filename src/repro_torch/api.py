@@ -5,7 +5,9 @@
     r.table["TE"]["p95"], r.preempted_frac, r.makespan
 
 ``run_experiment`` builds the config (validated against the port's
-policy table), builds the scenario's ``JobSet``, runs the PyTorch
+policy table), builds the scenario's ``JobSet`` (any name of
+:func:`scenario_names`, gang widths and trace adapters included), runs
+the PyTorch
 engine on ``device`` (the current CUDA device unless the caller passes
 one, e.g. ``device="cpu"``) and returns an :class:`ExperimentResult`
 with the same fields as the JAX package's.
@@ -29,12 +31,15 @@ from repro_torch.kernels import ops
 ENGINES = ("torch",)
 DEFAULT_SCENARIO = "paper-synthetic"
 
+scenario_names = scenarios.scenario_names
+
 
 class RunOutput(NamedTuple):
     """Engine-native output of one run (``ExperimentResult.raw``)."""
     jobs: sim_torch.Jobs
     state: sim_torch.State
     iterations: int        # engine loop iterations
+    acting_ticks: int      # iterations whose schedule pass ran
     seconds: float         # wall time of the engine loop (synchronized)
     launches: int          # schedule_step kernel launches in the run
 
@@ -63,7 +68,8 @@ def make_config(policy: Optional[str] = None, *,
                 base: Optional[SimConfig] = None,
                 n_jobs: Optional[int] = None, n_nodes: Optional[int] = None,
                 seed: Optional[int] = None, s: Optional[float] = None,
-                P: Optional[int] = None) -> SimConfig:
+                P: Optional[int] = None,
+                backfill: Optional[bool] = None) -> SimConfig:
     """SimConfig from the common experiment knobs (None keeps the
     ``base`` value, ``policy`` included)."""
     cfg = base if base is not None else SimConfig()
@@ -80,6 +86,8 @@ def make_config(policy: Optional[str] = None, *,
         repl["s"] = s
     if P is not None:
         repl["max_preemptions"] = P
+    if backfill is not None:
+        repl["backfill"] = backfill
     return dataclasses.replace(cfg, **repl) if repl else cfg
 
 
@@ -98,6 +106,7 @@ def run_experiment(scenario: str = DEFAULT_SCENARIO,
                    seed: Optional[int] = None,
                    s: Optional[float] = None,
                    P: Optional[int] = None,
+                   backfill: Optional[bool] = None,
                    mode: Optional[str] = None,
                    device=None) -> ExperimentResult:
     """Run one (scenario, policy) experiment on the PyTorch engine.
@@ -105,15 +114,16 @@ def run_experiment(scenario: str = DEFAULT_SCENARIO,
     ``jobs`` short-circuits the scenario build (to share one JobSet
     across policies); ``mode`` ("event" | "tick", default
     ``cfg.time_mode``) selects the time advancement (bit-identical
-    results); ``device`` defaults to the current CUDA device and raises
-    without one."""
+    results); ``backfill`` switches the bounded first-fit BE backfill;
+    ``device`` defaults to the current CUDA device and raises without
+    one."""
     if engine not in ENGINES:
         raise ValueError(f"unknown engine {engine!r}; one of {ENGINES}")
     if mode not in (None, "event", "tick"):
         raise ValueError(f"unknown mode {mode!r}; one of ('event', 'tick')")
     dev = _device.resolve(device)
     cfg = make_config(policy, base=cfg, n_jobs=n_jobs, n_nodes=n_nodes,
-                      seed=seed, s=s, P=P)
+                      seed=seed, s=s, P=P, backfill=backfill)
     mode = cfg.time_mode if mode is None else mode
     js = scenarios.build(scenario, cfg) if jobs is None else jobs
     tj = sim_torch.jobs_from_jobset(js, dev)
@@ -125,7 +135,8 @@ def run_experiment(scenario: str = DEFAULT_SCENARIO,
     _synchronize(dev)
     seconds = time.perf_counter() - t0
     summary = sim_torch.result_summary(tj, st)
-    raw = RunOutput(tj, st, stats["iterations"], seconds,
+    raw = RunOutput(tj, st, stats["iterations"], stats["acting_ticks"],
+                    seconds,
                     ops.LAUNCHES["schedule_step"] - launches0)
     return ExperimentResult(
         scenario=scenario, policy=cfg.policy, engine=engine, cfg=cfg,

@@ -75,7 +75,8 @@ class WorkloadSpec:
     gp_min: TruncNormal = field(
         default_factory=lambda: TruncNormal(3.0, 3.0, 0.0, 20.0))
     gp_scale: float = 1.0             # Fig. 7 sweeps {1, 2, 4, 8}
-    # Gang jobs (beyond the paper); only 0.0 runs in this port so far.
+    # Gang jobs (beyond the paper): the fraction of jobs that are gangs,
+    # widths drawn from multi_node_widths. 0.0 = the paper's model.
     multi_node_frac: float = 0.0
     multi_node_widths: Tuple[int, ...] = (2, 4)
 
@@ -95,7 +96,9 @@ class SimConfig:
     seed: int = 0
     tick_minutes: float = 1.0
     time_mode: str = "event"          # "event" | "tick", bit-identical
-    # Bounded first-fit BE backfill (beyond the paper); not ported yet.
+    # Bounded first-fit BE backfill (beyond the paper): queued BE jobs
+    # behind a blocked head start when they fit, at most backfill_depth
+    # blocked jobs skipped a pass.
     backfill: bool = False
     backfill_depth: int = 64
 
@@ -105,11 +108,3 @@ class SimConfig:
         if self.time_mode not in ("tick", "event"):
             raise ValueError(f"unknown time_mode {self.time_mode!r}; "
                              "one of ('tick', 'event')")
-        if self.backfill:
-            raise NotImplementedError(
-                "backfill=True is not supported by the PyTorch engine yet "
-                "(gangs and backfill, ROADMAP.md)")
-        if self.workload.multi_node_frac > 0:
-            raise NotImplementedError(
-                "multi_node_frac > 0 (gang jobs) is not supported by the "
-                "PyTorch engine yet (gangs and backfill, ROADMAP.md)")

@@ -10,7 +10,8 @@ Each entry declares what the engine needs of a decision rule:
   by the signal-until-the-TE-fits loop (may draw from ``gen``);
 * ``victim_from_pass`` — the width-1 victim is read from the fused
   schedule pass (``kernels/ops.schedule_step``'s ``.victim``) instead
-  of a plain masked argmin over ``score``.
+  of a plain masked argmin over ``score``, and a gang TE's victim
+  scores from the same pass (``.scores``) over total gang demand.
 """
 from __future__ import annotations
 

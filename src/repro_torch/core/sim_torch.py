@@ -1,8 +1,8 @@
-"""The FitGpp scheduler engine in PyTorch (width-1 jobs).
+"""The FitGpp scheduler engine in PyTorch.
 
-The port of the JAX package's ``core/sim_jax.py`` for the paper's
-default configuration: single-node jobs, a strict-FIFO BE queue, tick
-and event time modes, every policy of the port's table. Per-job state
+The port of the JAX package's ``core/sim_jax.py``: tick and event time
+modes, every policy of the port's table, gang (multi-node) jobs and the
+bounded first-fit BE backfill (``SimConfig.backfill``). Per-job state
 is struct-of-arrays tensors on one device (int32/float32/bool, as in
 the JAX ``Jobs``/``State``), updated in place; the scalars that steer
 the loop (``t``, ``top_key``, ``n_done``, ``fallback_count``) and the
@@ -18,6 +18,17 @@ threads it through the TE lane, the BE lane and the gate, as the JAX
 engine does; fitgpp's victim selection reads ``.victim`` from the same
 fused pass.
 
+Gang jobs need ``width`` nodes at once, each covering the per-node
+demand: placement is all-or-nothing first fit on the ``(N, nodes)``
+``State.assign`` mask, victims vacate all their nodes at once, and a
+blocked gang TE selects its victims with :func:`_gang_select` (the
+single victim whose eviction alone suffices, else an accumulation in
+policy order that signals nothing when even every candidate would not
+suffice). With ``backfill`` the BE lane starts the first fitting queued
+job in key order while at most ``backfill_depth`` blocked jobs are
+skipped in a pass; the fused pass's ``be_pick``/``nskip`` carry that
+scan.
+
 Randomness (the score policies' fallback candidate, RAND's ranks) comes
 from the ``torch.Generator`` in ``State.rng``: exact parity with the JAX
 engine holds where no draw is used (``fallback_count == 0`` and no
@@ -26,6 +37,7 @@ the plain path.
 """
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass, fields
 from typing import NamedTuple, Optional
 
@@ -57,7 +69,7 @@ class Jobs:
     demand: torch.Tensor      # (N, 3) f32
     is_te: torch.Tensor       # (N,) bool
     gp: torch.Tensor          # (N,) i32
-    width: torch.Tensor       # (N,) i32, 1 in this engine
+    width: torch.Tensor       # (N,) i32 gang width (>= 1)
     valid: torch.Tensor       # (N,) bool
 
     @property
@@ -117,13 +129,8 @@ def jobs_from_numpy(arrays: dict, device=None) -> Jobs:
     dev = _device.resolve(device)
     arrays = dict(arrays)
     arrays.setdefault("valid", np.ones(len(arrays["submit"]), bool))
-    jobs = Jobs(**{f: _tensor(arrays[f], dt, dev)
+    return Jobs(**{f: _tensor(arrays[f], dt, dev)
                    for f, dt in _JOB_DTYPES.items()})
-    if bool((jobs.width != 1).any()):
-        raise NotImplementedError(
-            "gang jobs (width > 1) are not supported by the PyTorch engine "
-            "yet (gangs and backfill, ROADMAP.md)")
-    return jobs
 
 
 def jobs_from_jobset(js: JobSet, device=None) -> Jobs:
@@ -263,6 +270,35 @@ def _fit_counts(free: torch.Tensor, demand: torch.Tensor) -> torch.Tensor:
         .sum(1, dtype=I32)
 
 
+def _gang_fit(free: torch.Tensor, d: torch.Tensor, w: int):
+    """All-or-nothing first fit: (ok, mask of the first ``w`` nodes
+    whose free vector covers the per-node demand ``d``); the mask is
+    all-False when the gang does not fit. ``ok`` stays on the device."""
+    fits = _node_fits(free, d)
+    ok = fits.sum() >= w
+    return ok, fits & (fits.cumsum(0) <= w) & ok
+
+
+def _gang_fits(free: torch.Tensor, demand: torch.Tensor,
+               width: torch.Tensor) -> torch.Tensor:
+    """(N,) bool: at least ``width[j]`` nodes of ``free`` each cover
+    ``demand[j]`` (``_gang_fit``'s verdict for every job at once)."""
+    return _fit_counts(free, demand) >= width
+
+
+def _backfill_would_act(be_q: torch.Tensor, fits: torch.Tensor,
+                        key: torch.Tensor, depth: int) -> torch.Tensor:
+    """Does any of the first ``depth`` queued BE jobs in key order fit?
+    The JAX engine scans ``argsort(keys)[:depth]``; the same verdict
+    without a sort: the first fitting job in key order lies in that
+    window iff fewer than ``depth`` queued jobs are keyed ahead of it
+    (queue keys are unique, and every job ahead of it does not fit)."""
+    mq = be_q & fits
+    pick_key = torch.where(mq, key, _INF).min()
+    ahead = (be_q & (key < pick_key)).sum()
+    return mq.any() & (ahead < depth)
+
+
 def _best_victim_node(free, assign, demand, te_d):
     """Eq. 2 glue: per job, the max over assigned nodes of the min
     slack ``(free + own demand) - te_demand``, and that node; rows with
@@ -294,14 +330,89 @@ def _release(assign: torch.Tensor, demand: torch.Tensor,
     return sel.T @ demand
 
 
+def _signal_one(st: State, jobs: Jobs, v: int, te: int, gp: int) -> None:
+    """Signal preemption of running BE job v (grace period ``gp``, a
+    host int) for TE job te; a gang victim promises or vacates all of
+    its nodes at once. GP == 0 vacates inline (same tick, requeued on
+    top); GP > 0 enters grace and the victim's resources become
+    pending."""
+    d = jobs.demand[v][None, :] * st.assign[v][:, None].to(F32)
+    st.preempt_count[v] += 1
+    st.last_signal[v] = st.t
+    st.awaiting_resume[v] = True
+    if gp == 0:
+        st.state[v] = QUEUED
+        st.assign[v] = False
+        st.queue_key[v] = st.top_key
+        st.top_key -= 1.0
+        st.free += d
+        st.last_vacate[v] = st.t
+    else:
+        st.state[v] = GRACE
+        st.pending_free += d
+        st.grace_left[v] = gp
+        st.victim_of[v] = te
+        st.te_pending[te] += 1
+
+
+def _gang_select(st: State, jobs: Jobs, te: int, w: int, rank_val, P,
+                 score=None) -> list:
+    """Victims for a blocked gang TE (width ``w``), as the JAX engine's
+    ``_gang_select`` picks them, in signalling order: a list of
+    ``(victim, over_cap)``; the caller signals them and counts each
+    over-P-cap one into ``fallback_count``. Pure: nothing is signalled
+    here.
+
+    With ``score`` (lower = better victim, over the total gang demand):
+    the min-score single victim whose eviction alone yields ``w``
+    fitting nodes, among under-P-cap candidates when any exist. Else an
+    accumulation in policy order (``rank_val`` higher first, under-cap
+    candidates first, first index on ties) until ``w`` nodes fit the
+    TE; when even every candidate would not suffice, nothing."""
+    te_d = jobs.demand[te]
+    free0 = st.free
+    cand0 = (st.state == RUNNING) & ~jobs.is_te
+    under0 = st.preempt_count < P
+    if score is not None:
+        # single-eviction sufficiency over the (N, nodes, 3) tile
+        trial = free0[None, :, :] + jobs.demand[:, None, :] \
+            * st.assign[:, :, None].to(F32)
+        nfit1 = covers(trial, (te_d - _EPS)[None, None, :]).sum(1)
+        pool = cand0 & (under0 | ~(cand0 & under0).any())
+        single = pool & (nfit1 >= w)
+        v1 = _argmin_key(single, score)
+        have, v1, u1 = _ints(single.any(), v1, _at(under0, v1))
+        if have:
+            return [(v1, not u1)]
+    taken = torch.zeros_like(cand0)
+    pending = free0.clone()
+    satisfied = _node_fits(pending, te_d).sum() >= w
+    picks = []
+    while True:
+        c = cand0 & ~taken
+        m1 = c & under0
+        m1_any = m1.any()
+        v = _argmax_key(torch.where(m1_any, m1, c), rank_val)
+        sat, c_any, m1_any, v = _ints(satisfied, c.any(), m1_any, v)
+        if sat or not c_any:
+            return picks if sat else []
+        pending += jobs.demand[v][None, :] * st.assign[v][:, None].to(F32)
+        satisfied = _node_fits(pending, te_d).sum() >= w
+        taken[v] = True
+        picks.append((v, not m1_any))
+
+
 class _Pass(NamedTuple):
     """One fused schedule-pass evaluation shared by the gate, the TE
-    lane and the BE lane; ``be_pick``/``be_can`` are host values."""
+    lane and the BE lane; ``be_pick``/``be_can``/``nskip`` are host
+    values."""
     fits: torch.Tensor       # (N, M) i32
     fit_now: torch.Tensor    # (N,)  i32
     fit_pend: torch.Tensor   # (N,)  i32
-    be_pick: int             # queued BE head (-1 when none)
-    be_can: bool             # the head exists and fits now
+    be_pick: int             # BE job the lane would start next (-1: none)
+    be_can: bool             # the pick exists and fits now
+    nskip: int               # non-fitting queued BE keyed ahead of the
+    #                          pick (backfill's scan budget; 0 without)
 
 
 def _make_step(cfg: SimConfig, jobs: Jobs, n_nodes: int,
@@ -321,6 +432,8 @@ def _make_step(cfg: SimConfig, jobs: Jobs, n_nodes: int,
     spec = policy_registry.get_policy(cfg.policy)
     preemptive = spec.preemptive
     P = cfg.max_preemptions
+    backfill = cfg.backfill
+    depth = min(int(cfg.backfill_depth), N)    # the gate's scan window
     s = torch.tensor(cfg.s, dtype=F32, device=dev)
     gp_f = jobs.gp.to(F32)
     be_job = ~jobs.is_te
@@ -331,6 +444,9 @@ def _make_step(cfg: SimConfig, jobs: Jobs, n_nodes: int,
     no_cand_norms = ops.normalizers(jobs.demand, gp_f, no_jobs, node_cap)
     arrival_keys = torch.arange(N, dtype=F32, device=dev)
     ones = torch.ones(N, dtype=I32, device=dev)
+    # a gang's score policies rank its victims on their total demand
+    total_jobs = dataclasses.replace(
+        jobs, demand=jobs.demand * jobs.width[:, None].to(F32))
     # static per-job values the host branches on (no device reads)
     gp_host = jobs.gp.cpu().numpy()
     width_host = jobs.width.cpu().numpy()
@@ -344,17 +460,25 @@ def _make_step(cfg: SimConfig, jobs: Jobs, n_nodes: int,
 
     def queue_pass(st: State, be_mask: torch.Tensor) -> _Pass:
         """The fit tile against ``free`` and ``free + pending_free`` and
-        the BE queue head, from the fused pass. (With no pending
-        residue ``free + pending_free`` equals ``free`` bit for bit, so
-        the JAX engine's residue gate needs no twin here.)"""
+        the BE queue scan over ``be_mask``, from the fused pass. Without
+        backfill the pick is the queue head (head-of-line blocking:
+        ``be_can`` is False when the head does not fit); with backfill
+        it is the first fitting job in key order, ``nskip`` jobs behind
+        the head. (With no pending residue ``free + pending_free``
+        equals ``free`` bit for bit, so the JAX engine's residue gate
+        needs no twin here.)"""
         ps = ops.schedule_step(jobs.demand, gp_f, jobs.width, st.queue_key,
                                st.assign, st.free, st.pending_free, no_jobs,
                                no_jobs, be_mask, zero3, node_cap, s=s,
                                norms=no_cand_norms)
+        if backfill:
+            pick, nskip = _ints(ps.be_pick, ps.nskip)
+            return _Pass(ps.fits, ps.fit_now, ps.fit_pend, pick, pick >= 0,
+                         nskip)
         h = ps.be_head.clamp(min=0)
         can = (ps.be_head >= 0) & (_at(ps.fit_now, h) >= _at(jobs.width, h))
         pick, can = _ints(ps.be_head, can)
-        return _Pass(ps.fits, ps.fit_now, ps.fit_pend, pick, bool(can))
+        return _Pass(ps.fits, ps.fit_now, ps.fit_pend, pick, bool(can), 0)
 
     def place(st: State, j: int, nodes: torch.Tensor) -> None:
         """Start job j on the ``nodes`` mask (assumes it fits)."""
@@ -372,26 +496,7 @@ def _make_step(cfg: SimConfig, jobs: Jobs, n_nodes: int,
         return row & (row.cumsum(0) <= int(width_host[j]))
 
     def signal_one(st: State, v: int, te: int) -> None:
-        """Signal preemption of running BE job v for TE job te. GP == 0
-        vacates inline (same tick, requeued on top); GP > 0 enters grace
-        and the victim's resources become pending."""
-        d = jobs.demand[v][None, :] * st.assign[v][:, None].to(F32)
-        st.preempt_count[v] += 1
-        st.last_signal[v] = st.t
-        st.awaiting_resume[v] = True
-        if gp_host[v] == 0:
-            st.state[v] = QUEUED
-            st.assign[v] = False
-            st.queue_key[v] = st.top_key
-            st.top_key -= 1.0
-            st.free += d
-            st.last_vacate[v] = st.t
-        else:
-            st.state[v] = GRACE
-            st.pending_free += d
-            st.grace_left[v] = int(gp_host[v])
-            st.victim_of[v] = te
-            st.te_pending[te] += 1
+        _signal_one(st, jobs, v, te, int(gp_host[v]))
 
     def score_select(st: State, te: int) -> int:
         """Eq. 2 eligibility (best assigned node), P cap and Eq. 4
@@ -448,16 +553,41 @@ def _make_step(cfg: SimConfig, jobs: Jobs, n_nodes: int,
             satisfied = (te_d <= free0[node] + pending[node] + _EPS).all()
             taken[v] = True
 
+    def gang_score(st: State) -> torch.Tensor:
+        """The score policy's Eq. 3-style score over each job's total
+        gang demand; fitgpp's from the fused pass (the schedule-pass
+        kernel on the card)."""
+        cand = cand_mask(st)
+        if not spec.victim_from_pass:
+            return spec.score(total_jobs, cand, node_cap, s)
+        return ops.schedule_step(
+            total_jobs.demand, gp_f, jobs.width, st.queue_key, st.assign,
+            st.free, st.pending_free, cand, st.preempt_count < P, no_jobs,
+            zero3, node_cap, s=s).scores
+
     def trigger_preemption(st: State, te: int) -> None:
+        w = int(width_host[te])
+        if w == 1:
+            if spec.kind == "score":
+                signal_one(st, score_select(st, te), te)
+            else:
+                until_fits_select(st, te, spec.rank(st, jobs, st.rng))
+            return
+        # a gang draws no fallback candidate (RAND's ranks still draw)
         if spec.kind == "score":
-            signal_one(st, score_select(st, te), te)
+            score = gang_score(st)
+            picks = _gang_select(st, jobs, te, w, -score, P, score=score)
         else:
-            until_fits_select(st, te, spec.rank(st, jobs, st.rng))
+            picks = _gang_select(st, jobs, te, w,
+                                 spec.rank(st, jobs, st.rng), P)
+        for v, over_cap in picks:
+            st.fallback_count += int(over_cap)
+            signal_one(st, v, te)
 
     def gate(st: State, ps: _Pass) -> bool:
         """Would a pass on this State act? (The lanes' exit evaluation,
         the same verdict as :func:`would_act` for a fresh pass.)"""
-        if ps.be_can:
+        if ps.be_can and (not backfill or ps.nskip < depth):
             return True
         if not preemptive:
             return False
@@ -469,18 +599,26 @@ def _make_step(cfg: SimConfig, jobs: Jobs, n_nodes: int,
     def would_act(st: State, cache: _Cache) -> bool:
         """Could a schedule pass on this State start a job or invoke
         victim selection? The BE head check gathers one demand row; the
-        TE part runs only when a TE is queued."""
+        TE part runs only when a TE is queued. Under backfill the BE
+        part asks whether any of the first ``depth`` queued BE jobs in
+        key order fits."""
         queued = st.state == QUEUED
         be_q = queued & be_job if preemptive else queued
-        head = _argmin_key(be_q, st.queue_key)
-        ok_head = _node_fits(st.free, _at(jobs.demand, head)).sum() \
-            >= _at(jobs.width, head)
-        act = be_q.any() & ok_head
+        fits_now = None
+        if backfill:
+            fits_now = _gang_fits(st.free, jobs.demand, jobs.width)
+            act = _backfill_would_act(be_q, fits_now, st.queue_key, depth)
+        else:
+            head = _argmin_key(be_q, st.queue_key)
+            ok_head = _node_fits(st.free, _at(jobs.demand, head)).sum() \
+                >= _at(jobs.width, head)
+            act = be_q.any() & ok_head
         if preemptive and cache.n_q_te > 0:
             te_q = queued & jobs.is_te
-            fits_now = _fit_counts(st.free, jobs.demand) >= jobs.width
-            fits_pend = _fit_counts(st.free + st.pending_free,
-                                    jobs.demand) >= jobs.width
+            if fits_now is None:
+                fits_now = _gang_fits(st.free, jobs.demand, jobs.width)
+            fits_pend = _gang_fits(st.free + st.pending_free, jobs.demand,
+                                   jobs.width)
             trigger = (st.te_pending == 0) & ~fits_pend \
                 & cand_mask(st).any()
             act = act | (te_q & (fits_now | trigger)).any()
@@ -514,9 +652,10 @@ def _make_step(cfg: SimConfig, jobs: Jobs, n_nodes: int,
                 trigger_preemption(st, j)
                 # GP=0 victims vacate inline: place the TE now, before
                 # the BE lane can reclaim the freed nodes
-                row = _node_fits(st.free, jobs.demand[j])
-                if int(row.sum()) >= width_host[j]:
-                    place(st, j, first_nodes(row, j))
+                ok2, nodes = _gang_fit(st.free, jobs.demand[j],
+                                       int(width_host[j]))
+                if bool(ok2):
+                    place(st, j, nodes)
             ps = queue_pass(st, head_mask(st))
 
     def be_queue(st: State, ps: _Pass) -> _Pass:
@@ -526,6 +665,26 @@ def _make_step(cfg: SimConfig, jobs: Jobs, n_nodes: int,
             place(st, j, first_nodes(ps.fits[j], j))
             ps = queue_pass(st, head_mask(st))
         return ps
+
+    def be_queue_backfill(st: State, ps: _Pass) -> _Pass:
+        """Bounded first-fit backfill: walk the BE queue in key order,
+        start whatever fits, skip (at most ``backfill_depth`` in all)
+        whatever does not; skipped jobs keep their keys and are not
+        revisited this pass. Each iteration places the pass's pick, once
+        the ``nskip`` jobs ahead of it still fit the budget, and marks
+        those skips in bulk. Returns a pass over the full queue (the
+        gate's view)."""
+        skipped = torch.zeros(N, dtype=BOOL, device=dev)
+        scanned = 0
+        while ps.be_can and scanned + ps.nskip < cfg.backfill_depth:
+            j = ps.be_pick
+            q = head_mask(st) & ~skipped
+            skipped |= q & (ps.fit_now < jobs.width) \
+                & (st.queue_key < st.queue_key[j])
+            scanned += ps.nskip
+            place(st, j, first_nodes(ps.fits[j], j))
+            ps = queue_pass(st, head_mask(st) & ~skipped)
+        return queue_pass(st, head_mask(st))
 
     def arrivals(st: State, cache: _Cache) -> None:
         """Queue every submitted job, keyed by arrival order (= row
@@ -573,7 +732,7 @@ def _make_step(cfg: SimConfig, jobs: Jobs, n_nodes: int,
         ps = queue_pass(st, head_mask(st))
         if preemptive:
             ps = te_lane(st, ps)
-        ps = be_queue(st, ps)
+        ps = be_queue_backfill(st, ps) if backfill else be_queue(st, ps)
         queued = st.state == QUEUED
         any_g, g = _next_vacate(st)
         any_g, g, n_q_te, n_queued = _ints(
@@ -632,7 +791,9 @@ def _make_step(cfg: SimConfig, jobs: Jobs, n_nodes: int,
         st.grace_left -= dt * in_grace.to(I32)
         st.t = t1 + dt
 
-    def step(st: State, cache: _Cache) -> None:
+    def step(st: State, cache: _Cache) -> bool:
+        """One tick (and the event jump); True when its schedule pass
+        ran (an acting tick)."""
         arrivals(st, cache)
         vacates(st, cache)
         # every schedule action starts from a queued job
@@ -640,7 +801,7 @@ def _make_step(cfg: SimConfig, jobs: Jobs, n_nodes: int,
         act_next = schedule(st, cache) if act else False
         nfin = run_minute(st, cache)
         if time_mode == "tick":
-            return
+            return act
         # finishers freed capacity: re-evaluate the gate; otherwise the
         # lanes' exit evaluation still answers for this State
         if nfin > 0:
@@ -649,6 +810,7 @@ def _make_step(cfg: SimConfig, jobs: Jobs, n_nodes: int,
             hold = act_next
         if not (st.n_done >= N or hold):
             jump(st, cache)
+        return act
 
     return step
 
@@ -671,18 +833,20 @@ def run(cfg: SimConfig, jobs: Jobs, seed: int = 0,
         time_mode: Optional[str] = None,
         stats: Optional[dict] = None) -> State:
     """Run the full simulation on the jobs' device; returns the final
-    State. ``stats``, when given, receives the loop's ``iterations``."""
+    State. ``stats``, when given, receives the loop's ``iterations``
+    and ``acting_ticks`` (the ticks whose schedule pass ran)."""
     st = init_state(jobs, cfg.cluster.n_nodes, cfg.cluster.node.as_tuple(),
                     seed)
     step = _make_step(cfg, jobs, cfg.cluster.n_nodes, time_mode=time_mode)
     cache = _cache_from_state(jobs, st)
     N = jobs.submit.shape[0]
-    iterations = 0
+    iterations = acting = 0
     while st.n_done < N and st.t < MAX_TICKS:
-        step(st, cache)
+        acting += step(st, cache)
         iterations += 1
     if stats is not None:
         stats["iterations"] = iterations
+        stats["acting_ticks"] = acting
     return st
 
 

@@ -73,6 +73,10 @@ constexpr int kTile = 256;          // jobs (threads) per tile
 constexpr int kChunk = 640;         // nodes a tile stages at a time
 constexpr int kNone = 0x7fffffff;   // "no index" in an argmin pair
 constexpr float kEps = 1e-9f;       // FIT_EPS as the float32 reference rounds it
+// A tile stages all of its nodes at once only where M <= kChunk, so a
+// whole-slab index (row * M + node, at most kTile * kChunk) is exact in
+// a float and in an int; every index that grows with M or J is size_t.
+static_assert(kTile * kChunk < (1 << 24), "slab indices must be exact floats");
 
 __device__ __forceinline__ float inf_f() { return __int_as_float(0x7f800000); }
 
@@ -221,7 +225,8 @@ __global__ void __launch_bounds__(kTile) schedule_step_kernel(
       bool bulk = false;
       if (whole) {
         // bytes [row0, row0 + n): the aligned middle by one bulk copy,
-        // placed so that shared offsets mirror global alignment
+        // placed so that shared offsets mirror global alignment (M <=
+        // kChunk here, so n <= kTile * kChunk)
         const int n = rows * M;
         const int mis = static_cast<int>(row0 & 15);
         const size_t a_beg = (row0 + 15) & ~size_t(15);
@@ -249,16 +254,17 @@ __global__ void __launch_bounds__(kTile) schedule_step_kernel(
       } else {
         // rows of a node range are apart in global memory: plain loads
         for (int r = warp; r < rows; r += kTile / 32) {
-          const uint8_t* src = assign + row0 + static_cast<size_t>(r) * M + m0;
+          const uint8_t* src =
+              assign + row0 + static_cast<size_t>(r) * M + m0;
           for (int c = lane; c < mc; c += 32) slab[r * mc + c] = src[c];
         }
       }
       for (int m = tid; m < mc; m += kTile) {
-        const int g = m0 + m;
-        const float f0 = fr[3 * g], f1 = fr[3 * g + 1], f2 = fr[3 * g + 2];
-        sh_nodes[2 * m] = make_float4(f0, f1, f2, f0 + pd[3 * g]);
+        const size_t g = 3 * (static_cast<size_t>(m0) + m);
+        const float f0 = fr[g], f1 = fr[g + 1], f2 = fr[g + 2];
+        sh_nodes[2 * m] = make_float4(f0, f1, f2, f0 + pd[g]);
         sh_nodes[2 * m + 1] =
-            make_float4(f1 + pd[3 * g + 1], f2 + pd[3 * g + 2], 0.f, 0.f);
+            make_float4(f1 + pd[g + 1], f2 + pd[g + 2], 0.f, 0.f);
       }
       __syncthreads();                     // nodes and the plain bytes
       if (bulk) mbar_wait(bar, bar_uses & 1);
@@ -312,13 +318,14 @@ __global__ void __launch_bounds__(kTile) schedule_step_kernel(
         // A warp's 32 rows of fits are one contiguous run of 32*M ints:
         // the warp stores it in element order as soon as its rows are
         // done, int4 stores where the address is 16-byte aligned,
-        // scalars at the ends.
+        // scalars at the ends. M <= kChunk here, so n_w <= 32 * kChunk.
         const int n_w = (r_end - r_beg) * M;
-        int* dst = fits + row0 + static_cast<size_t>(r_beg) * M;
-        const int head =
-            min(n_w, static_cast<int>((4 - ((row0 + r_beg * M) & 3)) & 3));
+        const size_t w0 = row0 + static_cast<size_t>(r_beg) * M;
+        int* dst = fits + w0;
+        const int head = min(n_w, static_cast<int>((4 - (w0 & 3)) & 3));
         const int nvec = (n_w - head) >> 2;
-        // e = r * M + m, by a float reciprocal and one correction
+        // e = r * M + m, by a float reciprocal and one correction: e <
+        // 2^24 is exact in a float, so e * inv_m is within a row of r
         auto split = [&](int e, int& r, int& m) {
           r = __float2int_rz(static_cast<float>(e) * inv_m);
           m = e - r * M;

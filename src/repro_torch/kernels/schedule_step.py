@@ -32,7 +32,12 @@ from repro_torch.kernels import build
 
 _INF = float("inf")
 _TILE = 256          # jobs per tile of the kernel (kTile)
-_MAX_NODES = 7680    # nodes the kernel takes (it stages 640 at a time)
+# The kernel takes J, M and its B * ceil(J / 256) tiles as 32-bit ints
+# and walks its nodes 640 at a time (m0 + 640 must not overflow); every
+# offset that grows with J or M is 64-bit. So each is capped here, far
+# above any real cluster; the (J, M) int32 ``fits`` output (4 bytes a
+# job and node) meets the card's memory long before.
+_MAX_DIM = 2 ** 31 - 1024
 
 
 class SchedulePass(NamedTuple):
@@ -159,9 +164,12 @@ def schedule_step_cuda(demand, gp, width, queue_key, assign, free,
     dev = demand.device
     if dev.type != "cuda":
         raise ValueError(f"schedule_step_cuda needs CUDA tensors, got {dev}")
-    if J < 1 or not 1 <= M <= _MAX_NODES:
-        raise ValueError(f"schedule_step_cuda: need J >= 1 and "
-                         f"1 <= M <= {_MAX_NODES}, got J={J}, M={M}")
+    n_tiles = (J + _TILE - 1) // _TILE
+    if not (1 <= J <= _MAX_DIM and 1 <= M <= _MAX_DIM
+            and B * n_tiles <= _MAX_DIM):
+        raise ValueError(f"schedule_step_cuda: need 1 <= J, M <= {_MAX_DIM}"
+                         f" and B * ceil(J / {_TILE}) <= {_MAX_DIM} (32-bit "
+                         f"indices in the kernel), got B={B}, J={J}, M={M}")
 
     def per_row(x, n):                # (3,)/(B,3) or ()/(B,) -> (B, n)
         x = torch.as_tensor(x, dtype=torch.float32, device=dev)
@@ -186,7 +194,6 @@ def schedule_step_cuda(demand, gp, width, queue_key, assign, free,
             raise ValueError(f"schedule_step_cuda: {name} is on {x.device},"
                              f" demand on {dev}")
 
-    n_tiles = (J + _TILE - 1) // _TILE
     scores = torch.empty((B, J), dtype=torch.float32, device=dev)
     fits = torch.empty((B, J, M), dtype=torch.int32, device=dev)
     fit_now = torch.empty((B, J), dtype=torch.int32, device=dev)

@@ -1,31 +1,26 @@
-"""Named workloads for the port: so far the paper's own §4.2
-generator, ``paper-synthetic``."""
-from __future__ import annotations
+"""Named workloads for the port: the paper's own generators, the
+library of synthetic stress scenarios and the Philly-style and
+Alibaba-PAI-style trace adapters with their bundled sample fixtures,
+under the JAX package's registry names.
 
-from typing import Callable, Dict, List
+    from repro_torch import scenarios
+    js = scenarios.build("burst-storm", cfg)     # SimConfig -> JobSet
+    scenarios.scenario_names()                   # all registered names
+"""
+from repro_torch.scenarios.registry import (SYNTHETIC, TRACE, Scenario,
+                                            all_scenarios, build,
+                                            get_scenario, get_source,
+                                            register_scenario,
+                                            scenario_names)
+# importing these modules populates the registry
+from repro_torch.scenarios import library as library      # noqa: F401
+from repro_torch.scenarios import traces as traces        # noqa: F401
+from repro_torch.scenarios.traces import (TraceStats, iter_trace_csv,
+                                          load_pai_csv, load_philly_csv)
 
-import numpy as np
-
-from repro_torch.configs.cluster import SimConfig
-from repro_torch.core import workload
-from repro_torch.core.types import JobSet
-
-_SCENARIOS: Dict[str, Callable[[SimConfig], JobSet]] = {
-    "paper-synthetic": workload.generate,
-}
-
-
-def scenario_names() -> List[str]:
-    return sorted(_SCENARIOS)
-
-
-def build(name: str, cfg: SimConfig) -> JobSet:
-    """Build and validate the named scenario's JobSet for ``cfg``."""
-    try:
-        fn = _SCENARIOS[name]
-    except KeyError:
-        raise KeyError(f"unknown scenario {name!r}; registered: "
-                       f"{', '.join(scenario_names())}") from None
-    js = fn(cfg)
-    js.validate(np.asarray(cfg.cluster.node.as_tuple()))
-    return js
+__all__ = [
+    "SYNTHETIC", "TRACE", "Scenario", "TraceStats",
+    "all_scenarios", "build", "get_scenario", "get_source",
+    "iter_trace_csv", "library", "load_pai_csv", "load_philly_csv",
+    "register_scenario", "scenario_names", "traces",
+]

@@ -197,7 +197,9 @@ def test_api_result_mirrors_jax_api():
         assert r.table == {k: summary[k] for k in ("TE", "BE")}
 
 
-def test_state_round_trip_and_width_guard():
+def test_state_round_trip_with_gangs():
+    """A State round-trips through numpy; so do gang jobs and a
+    multi-node ``assign`` mask."""
     jobs, st = torch_run("fitgpp", "event")
     d = sim_torch.state_to_numpy(st)
     back = sim_torch.state_to_numpy(sim_torch.state_from_numpy(d, SEED,
@@ -205,10 +207,19 @@ def test_state_round_trip_and_width_guard():
     assert sim_torch.state_diff_fields(
         {k: v for k, v in d.items() if k != "rng"},
         {k: v for k, v in back.items() if k != "rng"}) == []
-    with pytest.raises(NotImplementedError, match="gang"):
-        sim_torch.jobs_from_numpy(dict(
-            submit=[0], exec_total=[1], demand=[[1.0, 1.0, 1.0]],
-            is_te=[False], gp=[0], width=[2]), "cpu")
+    gang = dict(submit=[0, 1], exec_total=[5, 3],
+                demand=[[4.0, 16.0, 2.0], [1.0, 1.0, 0.0]],
+                is_te=[False, True], gp=[2, 0], width=[3, 1])
+    gjobs = sim_torch.jobs_from_numpy(gang, "cpu")
+    assert gjobs.width.tolist() == [3, 1]
+    gst = sim_torch.init_state(gjobs, 4, (32.0, 256.0, 8.0), SEED)
+    gst.assign[0, :3] = True
+    gst.state[0] = 2
+    d = sim_torch.state_to_numpy(gst)
+    back = sim_torch.state_to_numpy(sim_torch.state_from_numpy(d, SEED,
+                                                               "cpu"))
+    assert sim_torch.state_diff_fields(d, back) == []
+    assert back["assign"].sum() == 3
 
 
 @pytest.mark.cuda

@@ -296,11 +296,13 @@ def test_scan_kernels_refuse_what_they_do_not_take(cuda_device):
 
 # schedule_step: chip_smoke.py's KERNEL_SHAPES (B, J, M), then odd node
 # counts and ragged tiles (the kernel's unaligned-slab and scalar-store
-# paths), then more nodes than the 640 the kernel stages at a time, up
-# to the wrapper's limit (7680)
+# paths), then more nodes than the 640 the kernel stages at a time:
+# up to 7680, and beyond (8192, 20000 and 12345, which is no multiple
+# of 640, so its last node range is ragged)
 SCHED_SHAPES = [(b, j, m) for b in (1, 4) for j in (5, 1000, 65536)
                 for m in (8, 84)] + [(3, 777, 13), (2, 300, 33)] \
-    + [(2, 300, 641), (1, 513, 1283), (1, 1000, 7680)]
+    + [(2, 300, 641), (1, 513, 1283), (1, 1000, 7680), (1, 1024, 8192),
+       (1, 512, 20000), (2, 300, 12345)]
 
 
 def sched_args(B, J, M, device, seed, empty=False):
@@ -383,6 +385,31 @@ def test_schedule_step_beyond_one_resident_wave(cuda_device):
 
 
 @pytest.mark.cuda
+def test_schedule_step_gang_score_pass(cuda_device):
+    """A pass built like fitgpp's gang-score pass at the gang workload's
+    shape (2^15 jobs, 84 nodes): widths 1, 2, 4 and 8 on as many
+    consecutive nodes, each job's total demand (demand * width), live
+    cand and under masks, no BE queue, a zero TE demand."""
+    J, M = 2 ** 15, 84
+    args = sched_args(1, J, M, cuda_device, seed=15)
+    rng = np.random.default_rng(16)
+    width = rng.choice(np.array([1, 2, 4, 8], np.int32), J)
+    cols = (rng.integers(0, M, J)[:, None] + np.arange(8)) % M
+    keep = np.arange(8) < width[:, None]
+    assign = np.zeros((J, M), bool)
+    assign[np.nonzero(keep)[0], cols[keep]] = True
+    args[2] = torch.from_numpy(width[None]).to(cuda_device)
+    args[4] = torch.from_numpy(assign[None]).to(cuda_device)
+    args[0] = args[0] * args[2][..., None].float()
+    args[9] = torch.zeros_like(args[9])
+    args[10] = torch.zeros_like(args[10])
+    args[12], args[13] = (x[None] for x in tops.normalizers(
+        args[0][0], args[1][0], args[7][0], args[11][0]))
+    got = assert_pass_equal(args)
+    assert (got.victim >= 0).all() and (got.be_head == -1).all()
+
+
+@pytest.mark.cuda
 def test_schedule_step_is_one_kernel_a_call(cuda_device):
     for B in (1, 4):
         names = device_kernels(
@@ -390,3 +417,26 @@ def test_schedule_step_is_one_kernel_a_call(cuda_device):
             "fn = lambda: tss.schedule_step_cuda(*args)")
         assert len(names) == 1, names
         assert "schedule_step_kernel" in names[0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("policy", ["fitgpp", "srtp"])
+def test_gang_backfill_engine_kernel_path_equals_plain_path(cuda_device,
+                                                            monkeypatch,
+                                                            policy):
+    """gang-heavy with backfill on 16 nodes (gangs preempt, fitgpp's
+    gang scores come from the kernel's pass): the whole final State of
+    the kernel path equals the plain path's, generator included."""
+    from repro_torch import api, scenarios
+    from repro_torch.core import sim_torch
+    cfg = api.make_config(policy, n_jobs=192, n_nodes=16, seed=0, P=4,
+                          backfill=True)
+    jobs = sim_torch.jobs_from_jobset(scenarios.build("gang-heavy", cfg),
+                                      cuda_device)
+    before = tops.LAUNCHES["schedule_step"]
+    kern = sim_torch.state_to_numpy(sim_torch.run(cfg, jobs, 0))
+    assert tops.LAUNCHES["schedule_step"] > before
+    assert kern["preempt_count"].sum() > 0
+    monkeypatch.setattr(tops, "_FORCE_PLAIN", True)
+    plain = sim_torch.state_to_numpy(sim_torch.run(cfg, jobs, 0))
+    assert sim_torch.state_diff_fields(kern, plain) == []
