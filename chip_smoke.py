@@ -14,7 +14,12 @@ two main paths through the entry points a user calls:
   scale (84 nodes, 2**16 jobs) through
   ``repro_torch.api.compare_policies``, then gang-heavy on the same 84
   nodes (2**15 jobs) under fifo, fitgpp and fitgpp with backfill
-  through ``repro_torch.api.run_experiment``;
+  through ``repro_torch.api.run_experiment``; then the host numpy
+  reference engine (``engine="reference"``) on the paper's cell, the
+  same-host baseline, held against the torch engine's results; then
+  the torch engine traced on the same cell (its event ring), each
+  stream validated, decomposed per job and held against the reference
+  engine's stream;
 * dense-LM serving: stablelm-12b at its published widths and full depth
   (40 layers, bf16, random weights from seed 0) prefills 4 prompts of
   2048 tokens through the flash-attention kernel and decodes 32 tokens
@@ -40,6 +45,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -131,6 +137,31 @@ CARD_VS_CPU_TOL = 1e-4
 
 class SmokeFailure(Exception):
     pass
+
+
+class EngineRuns:
+    """What the engine phases of one call share: phase paper's untraced
+    results (policy -> {"state": numpy State, "seconds", "launches",
+    "fallback_count"}), phase reference's traced streams (policy ->
+    (events, fallback_count)) and the paper cell's JobSets."""
+
+    def __init__(self):
+        self.paper = {}
+        self.reference_traces = {}
+        self._jobsets = {}
+
+    def jobset(self, n_jobs):
+        """The paper's cell as phase paper builds it: paper-synthetic,
+        84 nodes, seed 0; (cfg, JobSet, build seconds), built once per
+        size."""
+        from repro_torch import api, scenarios
+        if n_jobs not in self._jobsets:
+            cfg = api.make_config("fifo", n_jobs=n_jobs,
+                                  n_nodes=PAPER_NODES, seed=0)
+            t0 = time.perf_counter()
+            js = scenarios.build("paper-synthetic", cfg)
+            self._jobsets[n_jobs] = (cfg, js, time.perf_counter() - t0)
+        return self._jobsets[n_jobs]
 
 
 def emit(obj) -> None:
@@ -495,9 +526,11 @@ def phase_engine(torch, n_jobs=ENGINE_JOBS):
                                               .sum())})
 
 
-def phase_paper(torch, np, n_jobs=PAPER_JOBS):
-    """The main path: api.compare_policies at the paper's scale."""
+def phase_paper(torch, np, runs, n_jobs=PAPER_JOBS):
+    """The main path: api.compare_policies at the paper's scale; each
+    policy's result is kept in ``runs.paper``."""
     from repro_torch import api
+    from repro_torch.core import sim_torch
     from repro_torch.kernels import ops
     for name in ops.LAUNCHES:
         ops.LAUNCHES[name] = 0
@@ -524,6 +557,9 @@ def phase_paper(torch, np, n_jobs=PAPER_JOBS):
         check(all(np.isfinite(v) for t in sd for v in t.values()),
               f"{policy}: non-finite slowdown percentiles")
         k1 = k0 + r.raw.launches
+        runs.paper[policy] = {
+            "state": sim_torch.state_to_numpy(st), "seconds": r.raw.seconds,
+            "launches": r.raw.launches, "fallback_count": r.fallback_count}
         per_policy[policy] = {
             "wall_s": r.raw.seconds, "iterations": r.raw.iterations,
             "launches": r.raw.launches,
@@ -623,6 +659,201 @@ def phase_gang(torch, np, n_jobs=GANG_JOBS):
           "fitgpp_vs_fifo": vs_fifo(runs["fitgpp"]),
           "fitgpp_backfill_vs_fifo": vs_fifo(runs["fitgpp_backfill"]),
           "runs": runs})
+    return launches
+
+
+def first_difference(np, a, b):
+    d = np.flatnonzero(np.asarray(a) != np.asarray(b))
+    return int(d[0]) if d.size else None
+
+
+def reference_run(runs, policy, n_jobs, trace):
+    """One host numpy reference run on the paper's cell, as
+    ``api.run_experiment(engine="reference")`` makes it; returns the
+    result, its fallback count and the wall seconds of building and
+    running the simulator, the span the torch engine's ``raw.seconds``
+    covers (its State's set-up and loop)."""
+    from repro_torch import api
+    from repro_torch.core import simulator
+    cfg, js, _ = runs.jobset(n_jobs)
+    cfg = api.make_config(policy, base=cfg)
+    t0 = time.perf_counter()
+    sim = simulator.Simulator(cfg, js, trace=trace)
+    res = sim.run(mode="event")
+    return res, sim.policy.fallback_count, time.perf_counter() - t0
+
+
+def phase_reference(np, runs, n_jobs=PAPER_JOBS):
+    """The same-host baseline: the port's numpy reference engine (host
+    only, never the card) on the paper's cell under fifo and fitgpp,
+    untraced; its results held against phase paper's torch runs (finish
+    ticks, preemption counts and the slowdown table, bit for bit, where
+    neither run drew a random fallback). Then the traced fifo run (and
+    fitgpp's, where neither engine fell back) that phase trace compares
+    streams with."""
+    from repro_torch.core import metrics
+    from repro_torch.core.types import SimResult
+    _, js, build_s = runs.jobset(n_jobs)
+    out = {}
+    for policy in ("fifo", "fitgpp"):
+        res, fallback, wall = reference_run(runs, policy, n_jobs,
+                                            trace=False)
+        table = metrics.slowdown_table(res)
+        check(bool((res.finish > 0).all()), f"reference {policy}: "
+              "unfinished jobs")
+        check(all(np.isfinite(v) for t in table.values()
+                  for v in t.values()), f"reference {policy}: non-finite "
+              "slowdown percentiles")
+        run = {"wall_s": wall, "TE": table["TE"], "BE": table["BE"],
+               "preempted_frac": res.preempted_fraction(),
+               "makespan": int(res.makespan),
+               "preemptions": int(res.preempt_count.sum()),
+               "fallback_count": fallback}
+        torch_run = runs.paper.get(policy)
+        if torch_run is not None:
+            st = torch_run["state"]
+            run["torch_wall_s"] = torch_run["seconds"]
+            run["torch_over_reference"] = torch_run["seconds"] / wall
+            run["torch_fallback_count"] = torch_run["fallback_count"]
+            exact = policy == "fifo" or (
+                fallback == 0 and torch_run["fallback_count"] == 0)
+            first = first_difference(np, st["finish"], res.finish)
+            run["first_finish_difference"] = first
+            if exact:
+                check(first is None, f"reference {policy}: finish differs "
+                      f"from the torch engine's from job {first}")
+                check(np.array_equal(st["preempt_count"], res.preempt_count),
+                      f"reference {policy}: preemption counts differ")
+                torch_res = SimResult(
+                    finish=st["finish"].astype(np.int64),
+                    exec_total=res.exec_total, submit=res.submit,
+                    is_te=res.is_te, preempt_count=res.preempt_count)
+                check(metrics.slowdown_table(torch_res) == table,
+                      f"reference {policy}: slowdown tables differ")
+            run["equal_to_torch"] = exact
+        out[policy] = run
+    fifo, fit = out["fifo"]["TE"], out["fitgpp"]["TE"]
+    # the traced runs phase trace compares streams with
+    traced = {}
+    for policy in ("fifo", "fitgpp"):
+        if policy == "fitgpp" and (out["fitgpp"]["fallback_count"]
+                                   or runs.paper.get("fitgpp", {}).get(
+                                       "fallback_count", 0)):
+            continue
+        res, fallback, wall = reference_run(runs, policy, n_jobs,
+                                            trace=True)
+        runs.reference_traces[policy] = (res.trace, fallback)
+        traced[policy] = {"wall_s": wall, "events": len(res.trace)}
+    emit({"phase": "reference", "scenario": "paper-synthetic",
+          "n_jobs": n_jobs, "n_nodes": PAPER_NODES, "build_s": build_s,
+          "te_p95_cut": 1.0 - fit["p95"] / fifo["p95"],
+          "runs": out, "traced": traced})
+
+
+def phase_trace(torch, np, runs, n_jobs=PAPER_JOBS):
+    """The torch engine traced on the paper's cell under fifo and
+    fitgpp (event mode, the default ring capacity), through
+    ``api.run_experiment(trace=True)``: no overflow, a valid stream,
+    the slowdown decomposition's identity for every job (service equal
+    to the execution time, finish to the State's), the stream equal to
+    the reference engine's (fifo; fitgpp where neither fell back) and,
+    where phase paper ran, every other State field equal to its
+    untraced run. The fitgpp stream is written as CSV and Perfetto JSON
+    and the CSV read back."""
+    from repro_torch import api
+    from repro_torch.core import metrics, sim_torch
+    from repro_torch.kernels import ops
+    from repro_torch.obs import export, schema, timeseries
+    zero_launches()
+    t0 = time.perf_counter()
+    out, streams = {}, {}
+    for policy in ("fifo", "fitgpp"):
+        cfg, js, _ = runs.jobset(n_jobs)
+        t1 = time.perf_counter()
+        r = api.run_experiment("paper-synthetic", policy, cfg=cfg, jobs=js,
+                               mode="event", trace=True)
+        run_s = time.perf_counter() - t1
+        st = r.raw.state
+        events = r.events
+        check(r.trace_overflow == 0, f"trace {policy}: the ring dropped "
+              f"{r.trace_overflow} rows")
+        check(st.ev_n == len(events), f"trace {policy}: ev_n {st.ev_n} "
+              f"!= {len(events)} events")
+        t1 = time.perf_counter()
+        schema.validate_events(events, n_jobs=js.n, n_nodes=PAPER_NODES)
+        validate_s = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        dec = timeseries.slowdown_decomposition(events)
+        finish = st.finish.cpu().numpy()
+        check(sorted(dec) == list(range(js.n)), f"trace {policy}: the "
+              "decomposition misses jobs")
+        bad = [j for j, d in dec.items()
+               if not d.identity_holds() or d.finish != finish[j]
+               or d.service != int(js.exec_total[j])]
+        check(not bad, f"trace {policy}: the decomposition fails for "
+              f"{len(bad)} jobs, first {bad[:1]}")
+        decomp_s = time.perf_counter() - t1
+        run = {"n_jobs": js.n, "traced_wall_s": r.raw.seconds,
+               "run_experiment_s": run_s, "ev_n": st.ev_n,
+               "ring_rows": st.ev_buf.shape[0],
+               "ring_mb": st.ev_buf.numel() * 4 / 1e6,
+               "launches": r.raw.launches, "iterations": r.raw.iterations,
+               "fallback_count": r.fallback_count,
+               "validate_s": validate_s, "decomposition_s": decomp_s,
+               "preempted_jobs": sum(d.grace_stall > 0 or d.requeue_wait > 0
+                                     for d in dec.values())}
+        paper = runs.paper.get(policy)
+        if paper is not None:
+            untraced = paper["state"]
+            diff = [f for f in sim_torch.state_diff_fields(
+                untraced, sim_torch.state_to_numpy(st))
+                if f not in ("ev_buf", "ev_n")]
+            check(not diff, f"trace {policy}: the traced State differs "
+                  f"from phase paper's untraced one in {diff}")
+            check(r.raw.launches == paper["launches"], f"trace {policy}: "
+                  f"{r.raw.launches} launches, untraced {paper['launches']}")
+            run["untraced_wall_s"] = paper["seconds"]
+            run["traced_over_untraced"] = r.raw.seconds / paper["seconds"]
+            run["equal_to_untraced"] = True
+        ref = runs.reference_traces.get(policy)
+        if ref is None and policy == "fifo":
+            res, fallback, _ = reference_run(runs, "fifo", n_jobs,
+                                             trace=True)
+            ref = (res.trace, fallback)
+        if ref is not None and (
+                policy == "fifo" or ref[1] == r.fallback_count == 0):
+            metrics.assert_trace_parity(ref[0], events)
+            run["equal_to_reference_stream"] = True
+        else:
+            run["equal_to_reference_stream"] = None
+        check(policy != "fifo" or run["equal_to_reference_stream"],
+              "trace fifo: not compared with the reference stream")
+        out[policy] = run
+        streams[policy] = (events, js)
+    wall = time.perf_counter() - t0
+    launches = ops.LAUNCHES["schedule_step"]
+    check(launches == sum(r["launches"] for r in out.values()) > 0,
+          "trace launches do not add up")
+    events, js = streams["fitgpp"]
+    with tempfile.TemporaryDirectory() as tmp:
+        csv_path = os.path.join(tmp, "fitgpp.csv")
+        json_path = os.path.join(tmp, "fitgpp.perfetto.json")
+        t1 = time.perf_counter()
+        export.write_trace(csv_path, events, fmt="csv")
+        export.write_trace(json_path, events, fmt="perfetto",
+                           n_nodes=PAPER_NODES, is_te=js.is_te)
+        export_s = time.perf_counter() - t1
+        with open(csv_path) as f:
+            check(export.read_csv(f.read()) == events,
+                  "trace: the CSV does not read back equal")
+        with open(json_path) as f:
+            check(bool(json.load(f)["traceEvents"]), "trace: empty "
+                  "Perfetto export")
+        sizes = {"csv_mb": os.path.getsize(csv_path) / 1e6,
+                 "perfetto_mb": os.path.getsize(json_path) / 1e6}
+    emit({"phase": "trace", "scenario": "paper-synthetic",
+          "n_nodes": PAPER_NODES, "wall_s": wall, "launches": launches,
+          "export_s": export_s, **sizes, "runs": out})
     return launches
 
 
@@ -1743,8 +1974,8 @@ def phase_serve_family_card_vs_cpu(torch, arch, prompt_len=80):
 
 
 PHASES = ("build", "kernel", "flash_kernel", "ssd_kernel", "lru_kernel",
-          "engine", "paper", "gang", "serve", "serve_f32",
-          "serve_card_vs_cpu", "serve_ssm", "serve_hybrid")
+          "engine", "paper", "gang", "reference", "trace", "serve",
+          "serve_f32", "serve_card_vs_cpu", "serve_ssm", "serve_hybrid")
 
 
 def main(argv=None) -> int:
@@ -1781,11 +2012,18 @@ def main(argv=None) -> int:
         if "engine" in phases:
             phase_engine(torch)
         launches = {}         # kernel -> {main path: launches}
+        runs = EngineRuns()
         if "paper" in phases:
-            launches["schedule_step"] = {"paper": phase_paper(torch, np)}
+            launches["schedule_step"] = {"paper": phase_paper(torch, np,
+                                                              runs)}
         if "gang" in phases:
             launches.setdefault("schedule_step", {})["gang"] = \
                 phase_gang(torch, np)
+        if "reference" in phases:
+            phase_reference(np, runs)
+        if "trace" in phases:
+            launches.setdefault("schedule_step", {})["trace"] = \
+                phase_trace(torch, np, runs)
         if "serve" in phases:
             launches["flash_attention"] = {"serve": phase_serve(torch)}
         if "serve_f32" in phases:

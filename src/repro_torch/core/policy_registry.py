@@ -11,7 +11,9 @@ Each entry declares what the engine needs of a decision rule:
 * ``victim_from_pass`` — the width-1 victim is read from the fused
   schedule pass (``kernels/ops.schedule_step``'s ``.victim``) instead
   of a plain masked argmin over ``score``, and a gang TE's victim
-  scores from the same pass (``.scores``) over total gang demand.
+  scores from the same pass (``.scores``) over total gang demand;
+* ``rule`` — the numpy reference engine's decision rule, a
+  ``core/policies.Policy`` subclass; :func:`make` instantiates it.
 """
 from __future__ import annotations
 
@@ -30,6 +32,13 @@ class PolicySpec:
     score: Optional[Callable] = None
     rank: Optional[Callable] = None
     victim_from_pass: bool = False
+    rule: Optional[type] = None
+
+    def make(self, s: Optional[float] = None):
+        """Instantiate the reference decision rule (``s`` = Eq. 3 GP
+        weight, the paper's by default)."""
+        from repro_torch.configs.base import PAPER_S
+        return self.rule(PAPER_S if s is None else float(s))
 
 
 _REGISTRY: Dict[str, PolicySpec] = {}
@@ -45,6 +54,9 @@ def register_policy(spec: PolicySpec) -> PolicySpec:
         raise ValueError(f"{spec.name!r}: a score policy needs score()")
     if spec.preemptive and (spec.kind == "rank") == (spec.rank is None):
         raise ValueError(f"{spec.name!r}: a rank policy needs rank()")
+    if spec.rule is None or spec.rule.preemptive != spec.preemptive:
+        raise ValueError(f"{spec.name!r}: needs a reference rule of the "
+                         "same preemptiveness")
     _REGISTRY[spec.name] = spec
     return spec
 
@@ -60,6 +72,12 @@ def get_policy(name: str) -> PolicySpec:
     except KeyError:
         raise KeyError(f"unknown policy {name!r}; registered: "
                        f"{', '.join(sorted(_REGISTRY))}") from None
+
+
+def make(name: str, s: Optional[float] = None):
+    """The named policy's reference decision rule (what the numpy
+    ``SchedulerCore`` calls), with Eq. 3 weight ``s``."""
+    return get_policy(name).make(s)
 
 
 def policy_names() -> List[str]:

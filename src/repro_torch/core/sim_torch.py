@@ -34,6 +34,14 @@ from the ``torch.Generator`` in ``State.rng``: exact parity with the JAX
 engine holds where no draw is used (``fallback_count == 0`` and no
 RAND), and the generator advances identically on the kernel path and
 the plain path.
+
+``trace=True`` records every scheduler event into the State's ring
+buffer (``State.ev_buf``, the ``obs/ring.py`` layout), in the JAX
+engine's order, so with the same capacity the buffer equals the JAX
+engine's bit for bit; decode it with :func:`decode_trace`. The row
+count ``ev_n`` is a host int and every emission site already knows its
+count on the host, so the ring adds no device read. ``trace=False``
+(the default) carries a zero-size ring and runs no emission code.
 """
 from __future__ import annotations
 
@@ -52,6 +60,8 @@ from repro_torch.core.types import (DONE, GRACE, NOT_ARRIVED, QUEUED,
                                     RUNNING, JobSet)
 from repro_torch.kernels import ops
 from repro_torch.kernels.schedule_step import covers
+from repro_torch.obs import ring as obs_ring
+from repro_torch.obs import schema as obs_schema
 
 _INF = float("inf")
 _EPS = FIT_EPS
@@ -79,10 +89,15 @@ class Jobs:
 
 @dataclass
 class State:
-    """Engine state, field for field the JAX ``State`` minus the event
-    ring. Tensors live on the jobs' device; ``t``, ``top_key``,
-    ``n_done`` and ``fallback_count`` are host scalars and ``rng`` is a
-    ``torch.Generator`` on the same device."""
+    """Engine state, field for field the JAX ``State``. Tensors live on
+    the jobs' device; ``t``, ``top_key``, ``n_done``,
+    ``fallback_count`` and ``ev_n`` are host scalars and ``rng`` is a
+    ``torch.Generator`` on the same device.
+
+    The event ring: ``ev_buf`` is ``(capacity + 1, 4 + n_words)`` int32
+    (``obs/ring.py``; the last row is the dump row and stays zero),
+    ``ev_n`` counts every emitted row, dropped past capacity or not.
+    An untraced State carries a ``(0, 0)`` ``ev_buf`` and ``ev_n`` 0."""
     t: int
     state: torch.Tensor          # (N,) i32
     remaining: torch.Tensor      # (N,) i32
@@ -103,12 +118,14 @@ class State:
     n_done: int
     rng: torch.Generator
     fallback_count: int
+    ev_buf: torch.Tensor         # (cap + 1, 4 + n_words) i32, or (0, 0)
+    ev_n: int
 
 
 _JOB_DTYPES = {"submit": I32, "exec_total": I32, "demand": F32,
                "is_te": BOOL, "gp": I32, "width": I32, "valid": BOOL}
 _HOST_SCALARS = {"t": np.int32, "top_key": np.float32, "n_done": np.int32,
-                 "fallback_count": np.int32}
+                 "fallback_count": np.int32, "ev_n": np.int32}
 _STATE_DTYPES = {"state": I32, "remaining": I32, "assign": BOOL,
                  "preempt_count": I32, "grace_left": I32, "queue_key": F32,
                  "finish": I32, "te_pending": I32, "victim_of": I32,
@@ -145,7 +162,16 @@ def _generator(device: torch.device, seed: int) -> torch.Generator:
     return gen
 
 
-def init_state(jobs: Jobs, n_nodes: int, node_cap, seed: int) -> State:
+def _ring_buffer(n_nodes: int, capacity: int, dev) -> torch.Tensor:
+    shape = ((capacity + 1, obs_ring.HEADER_WORDS
+              + obs_ring.n_node_words(n_nodes)) if capacity > 0 else (0, 0))
+    return torch.zeros(shape, dtype=I32, device=dev)
+
+
+def init_state(jobs: Jobs, n_nodes: int, node_cap, seed: int,
+               trace_capacity: int = 0) -> State:
+    """The initial State; ``trace_capacity`` > 0 gives it an event ring
+    of that many rows (0: untraced)."""
     N = jobs.submit.shape[0]
     dev = jobs.device
     cap = torch.tensor(node_cap, dtype=F32, device=dev)
@@ -176,20 +202,24 @@ def init_state(jobs: Jobs, n_nodes: int, node_cap, seed: int) -> State:
         n_done=int((~jobs.valid).sum()),
         rng=_generator(dev, seed),
         fallback_count=0,
+        ev_buf=_ring_buffer(n_nodes, int(trace_capacity), dev),
+        ev_n=0,
     )
 
 
 def state_from_numpy(arrays: dict, seed: int, device=None) -> State:
-    """State from numpy arrays named as the JAX ``State`` fields
-    (every field except ``rng``, ``ev_buf`` and ``ev_n``); the
-    generator is seeded with ``seed``."""
+    """An untraced State from numpy arrays named as the JAX ``State``
+    fields (every field except ``rng``, ``ev_buf`` and ``ev_n``, which
+    are not read: the ring is zero-size and ``ev_n`` 0); the generator
+    is seeded with ``seed``."""
     dev = _device.resolve(device)
     kw = {f: _tensor(arrays[f], dt, dev) for f, dt in _STATE_DTYPES.items()}
     kw["t"] = int(arrays["t"])
     kw["top_key"] = float(np.float32(arrays["top_key"]))
     kw["n_done"] = int(arrays["n_done"])
     kw["fallback_count"] = int(arrays["fallback_count"])
-    return State(rng=_generator(dev, seed), **kw)
+    return State(rng=_generator(dev, seed),
+                 ev_buf=_ring_buffer(0, 0, dev), ev_n=0, **kw)
 
 
 def state_to_numpy(st: State) -> dict:
@@ -330,12 +360,114 @@ def _release(assign: torch.Tensor, demand: torch.Tensor,
     return sel.T @ demand
 
 
-def _signal_one(st: State, jobs: Jobs, v: int, te: int, gp: int) -> None:
+# ---------------------------------------------------------------------------
+# the event ring (obs/ring.py layout, the JAX engine's emission order)
+# ---------------------------------------------------------------------------
+
+class _Ring:
+    """Appends event rows to ``State.ev_buf``. ``State.ev_n`` is a host
+    int and every caller knows its row count on the host, so no append
+    reads the device: rows past capacity are dropped here on the host,
+    and rows selected by a mask are placed by a cumsum scatter (never
+    ``nonzero``, which waits for the device). Rows are zero until
+    written and each is written once; non-placement rows keep their
+    zero node words."""
+
+    def __init__(self, n_nodes: int, n_jobs: int, dev) -> None:
+        # (n_words, n_nodes) powers of two as int32 (bit 31 negative):
+        # a masked sum of distinct bits is the packed word's int32
+        # bit pattern, exact in any summation order
+        w = obs_ring.node_mask_weights(n_nodes).view(np.int32)
+        self.weights = torch.from_numpy(w.copy()).to(dev)
+        self.job_ids = torch.arange(n_jobs, dtype=I32, device=dev)
+
+    @staticmethod
+    def _cap(st: State) -> int:
+        return st.ev_buf.shape[0] - 1
+
+    def _col(self, v) -> torch.Tensor:
+        if isinstance(v, torch.Tensor):
+            return v.to(I32)
+        return torch.full_like(self.job_ids, int(v))
+
+    def rows(self, st: State, rows) -> None:
+        """Rows ``(t, code, job, aux)`` known on the host."""
+        r0 = st.ev_n
+        st.ev_n += len(rows)
+        keep = max(0, min(len(rows), self._cap(st) - r0))
+        if keep:
+            hdr = torch.tensor([[int(v) for v in row] for row in rows[:keep]],
+                               dtype=I32)
+            if st.ev_buf.is_cuda:
+                # pinned, so the copy is queued and the host never waits
+                hdr = hdr.pin_memory()
+            st.ev_buf[r0:r0 + keep, :obs_ring.HEADER_WORDS].copy_(
+                hdr, non_blocking=True)
+
+    def place(self, st: State, j: int, resumed: torch.Tensor,
+              nodes: torch.Tensor) -> None:
+        """START, or RESUME when ``resumed`` (0-d bool), with the node
+        mask packed into the words."""
+        r = st.ev_n
+        st.ev_n += 1
+        if r >= self._cap(st):
+            return
+        row = st.ev_buf[r]
+        row[0] = st.t
+        row[2] = j
+        row[3] = -1
+        row[1] = torch.where(resumed, obs_schema.RESUME, obs_schema.START)
+        row[obs_ring.HEADER_WORDS:] = torch.where(
+            nodes[None, :], self.weights, 0).sum(1, dtype=I32)
+
+    def masked(self, st: State, mask: torch.Tensor, k: int, t, codes,
+               auxes) -> None:
+        """For each of the ``k`` set bits of ``mask``, in ascending job
+        index, ``len(codes)`` rows (job-major) of ``codes[r]`` with
+        ``auxes[r]`` (an int or an (N,) tensor) at tick ``t``."""
+        cap = self._cap(st)
+        R = len(codes)
+        if R * k > 0 and st.ev_n < cap:
+            base = (mask.cumsum(0) - 1) * R + st.ev_n
+            for r, (code, aux) in enumerate(zip(codes, auxes)):
+                idx = base + r
+                idx = torch.where(mask & (idx < cap), idx, cap)
+                hdr = torch.stack((self._col(t), self._col(code),
+                                   self.job_ids, self._col(aux)), 1)
+                st.ev_buf[:, :obs_ring.HEADER_WORDS].index_put_((idx,), hdr)
+            st.ev_buf[cap] = 0
+        st.ev_n += R * k
+
+    def finishes_by_time(self, st: State, ft: torch.Tensor, k: int) -> None:
+        """FINISH rows for the ``k`` jobs whose finish tick ``ft`` is
+        below ``_BIG``: by finish tick, ascending index within a tick
+        (a stable sort)."""
+        r0 = st.ev_n
+        st.ev_n += k
+        keep = max(0, min(k, self._cap(st) - r0))
+        if keep == 0:
+            return
+        order = torch.sort(ft, stable=True).indices[:keep]
+        hdr = torch.stack((ft[order], self._col(obs_schema.FINISH)[:keep],
+                           order.to(I32), self._col(-1)[:keep]), 1)
+        st.ev_buf[r0:r0 + keep, :obs_ring.HEADER_WORDS] = hdr
+
+
+def _signal_one(st: State, jobs: Jobs, v: int, te: int, gp: int,
+                ring: Optional[_Ring] = None) -> None:
     """Signal preemption of running BE job v (grace period ``gp``, a
     host int) for TE job te; a gang victim promises or vacates all of
     its nodes at once. GP == 0 vacates inline (same tick, requeued on
     top); GP > 0 enters grace and the victim's resources become
     pending."""
+    if ring is not None:
+        # SIGNAL always; a GP=0 victim vacates and requeues inline (no
+        # GRACE_EXPIRE: it never entered grace)
+        rows = [(st.t, obs_schema.PREEMPT_SIGNAL, v, te)]
+        if gp == 0:
+            rows += [(st.t, obs_schema.VACATE, v, te),
+                     (st.t, obs_schema.REQUEUE, v, -1)]
+        ring.rows(st, rows)
     d = jobs.demand[v][None, :] * st.assign[v][:, None].to(F32)
     st.preempt_count[v] += 1
     st.last_signal[v] = st.t
@@ -416,11 +548,13 @@ class _Pass(NamedTuple):
 
 
 def _make_step(cfg: SimConfig, jobs: Jobs, n_nodes: int,
-               time_mode: str = None):
+               time_mode: str = None, trace: bool = False):
     """Build ``step(State, _Cache)``: one scheduling tick, plus — in
     ``"event"`` time mode — the jump over the following run of provably
     no-op ticks (bit-exact either way). Both arguments are updated in
-    place."""
+    place. ``trace`` builds the event emission (the State must then
+    carry a ring, ``init_state(trace_capacity=...)``); without it no
+    emission code runs."""
     dev = jobs.device
     N = jobs.submit.shape[0]
     node_cap = torch.tensor(cfg.cluster.node.as_tuple(), dtype=F32,
@@ -450,6 +584,7 @@ def _make_step(cfg: SimConfig, jobs: Jobs, n_nodes: int,
     # static per-job values the host branches on (no device reads)
     gp_host = jobs.gp.cpu().numpy()
     width_host = jobs.width.cpu().numpy()
+    ring = _Ring(n_nodes, N, dev) if trace else None
 
     def cand_mask(st):
         return (st.state == RUNNING) & be_job
@@ -483,6 +618,8 @@ def _make_step(cfg: SimConfig, jobs: Jobs, n_nodes: int,
     def place(st: State, j: int, nodes: torch.Tensor) -> None:
         """Start job j on the ``nodes`` mask (assumes it fits)."""
         resumed = st.awaiting_resume[j].clone()
+        if ring is not None:
+            ring.place(st, j, resumed, nodes)
         st.state[j] = RUNNING
         st.assign[j] = nodes
         st.queue_key[j] = _INF
@@ -496,7 +633,7 @@ def _make_step(cfg: SimConfig, jobs: Jobs, n_nodes: int,
         return row & (row.cumsum(0) <= int(width_host[j]))
 
     def signal_one(st: State, v: int, te: int) -> None:
-        _signal_one(st, jobs, v, te, int(gp_host[v]))
+        _signal_one(st, jobs, v, te, int(gp_host[v]), ring)
 
     def score_select(st: State, te: int) -> int:
         """Eq. 2 eligibility (best assigned node), P cap and Eq. 4
@@ -683,6 +820,10 @@ def _make_step(cfg: SimConfig, jobs: Jobs, n_nodes: int,
                 & (st.queue_key < st.queue_key[j])
             scanned += ps.nskip
             place(st, j, first_nodes(ps.fits[j], j))
+            if ring is not None and scanned > 0:
+                # marker after a placement that skipped ahead; aux =
+                # the pass's cumulative skips
+                ring.rows(st, [(st.t, obs_schema.BACKFILL, j, scanned)])
             ps = queue_pass(st, head_mask(st) & ~skipped)
         return queue_pass(st, head_mask(st))
 
@@ -697,6 +838,9 @@ def _make_step(cfg: SimConfig, jobs: Jobs, n_nodes: int,
         nxt = torch.where(st.state == NOT_ARRIVED, jobs.submit, _BIG).min()
         nxt, n_te, n_all = _ints(nxt, (arrive & jobs.is_te).sum(),
                                  arrive.sum())
+        if ring is not None:
+            ring.masked(st, arrive, n_all, st.t, (obs_schema.SUBMIT,),
+                        (-1,))
         cache.next_arrival = nxt
         cache.n_q_te += n_te
         cache.n_queued += n_all
@@ -711,6 +855,9 @@ def _make_step(cfg: SimConfig, jobs: Jobs, n_nodes: int,
         te_dec = torch.zeros(N + 1, dtype=I32, device=dev).scatter_add_(
             0, torch.where(vac, st.victim_of, N).long(), ones)[:N]
         freed = _release(st.assign, jobs.demand, vac)
+        if ring is not None:
+            # the VACATE row's aux, read before victim_of is cleared
+            vac_te = torch.where(vac, st.victim_of, -1)
         st.queue_key = torch.where(vac, st.top_key - rank.to(F32),
                                    st.queue_key)
         st.free += freed
@@ -722,6 +869,12 @@ def _make_step(cfg: SimConfig, jobs: Jobs, n_nodes: int,
         st.state.masked_fill_(vac, QUEUED)
         any_g, g = _next_vacate(st)
         n_vac, any_g, g = _ints(vac.sum(), any_g, g)
+        if ring is not None:
+            # [GRACE_EXPIRE, VACATE(aux = te), REQUEUE] per job,
+            # job-major in index order (grace jobs all have GP > 0)
+            ring.masked(st, vac, n_vac, st.t,
+                        (obs_schema.GRACE_EXPIRE, obs_schema.VACATE,
+                         obs_schema.REQUEUE), (-1, vac_te, -1))
         st.top_key -= n_vac
         cache.next_vacate = st.t + g if any_g else _BIG
         cache.n_queued += n_vac
@@ -752,6 +905,9 @@ def _make_step(cfg: SimConfig, jobs: Jobs, n_nodes: int,
         fin = running & (st.remaining <= 0)
         nfin = int(fin.sum())
         if nfin > 0:
+            if ring is not None:
+                ring.masked(st, fin, nfin, st.t + 1, (obs_schema.FINISH,),
+                            (-1,))
             st.state.masked_fill_(fin, DONE)
             st.finish.masked_fill_(fin, st.t + 1)
             st.free += _release(st.assign, jobs.demand, fin)
@@ -776,13 +932,18 @@ def _make_step(cfg: SimConfig, jobs: Jobs, n_nodes: int,
             last_fin = int(torch.where(running, st.remaining, 0).max())
             dt = last_fin if d_ev >= _BIG - t1 else min(max(d_ev, 0), span)
             fin = running & (st.remaining <= dt)
+            nfin = int(fin.sum())
+            if ring is not None:
+                # the FINISH rows the skipped ticks would have emitted
+                ring.finishes_by_time(
+                    st, torch.where(fin, t1 + st.remaining, _BIG), nfin)
             st.finish = torch.where(fin, t1 + st.remaining, st.finish)
             st.remaining -= torch.where(fin, st.remaining,
                                         dt * running.to(I32))
             st.state.masked_fill_(fin, DONE)
             st.free += _release(st.assign, jobs.demand, fin)
             st.assign &= ~fin[:, None]
-            st.n_done += int(fin.sum())
+            st.n_done += nfin
         else:
             d_fin = int(torch.where(running, st.remaining - 1,
                                     MAX_TICKS).min())
@@ -816,28 +977,51 @@ def _make_step(cfg: SimConfig, jobs: Jobs, n_nodes: int,
 
 
 def make_tick(cfg: SimConfig, jobs: Jobs, n_nodes: int,
-              time_mode: str = None):
+              time_mode: str = None, trace: bool = False):
     """A ``State -> State`` step (one tick, or one tick plus the event
     jump); the cache is rebuilt from the State on every call, so
-    single-stepping equals :func:`run`'s loop."""
-    step = _make_step(cfg, jobs, n_nodes, time_mode=time_mode)
+    single-stepping equals :func:`run`'s loop. With ``trace`` the State
+    must carry a ring."""
+    step = _make_step(cfg, jobs, n_nodes, time_mode=time_mode, trace=trace)
 
     def tick_step(st: State) -> State:
+        if trace and st.ev_buf.numel() == 0:
+            raise ValueError("a traced step needs a State with a ring "
+                             "(init_state(trace_capacity=...))")
         step(st, _cache_from_state(jobs, st))
         return st
 
     return tick_step
 
 
+def resolve_trace_capacity(cfg: SimConfig, jobs: Jobs,
+                           trace_capacity=None) -> int:
+    """The ring capacity a traced run uses: ``trace_capacity`` when
+    given, else ``obs.ring.default_capacity`` sized from the jobs and
+    the config's P cap (as the JAX engine sizes it)."""
+    if trace_capacity is not None:
+        return int(trace_capacity)
+    return obs_ring.default_capacity(jobs.submit.shape[0],
+                                     cfg.max_preemptions)
+
+
 def run(cfg: SimConfig, jobs: Jobs, seed: int = 0,
         time_mode: Optional[str] = None,
-        stats: Optional[dict] = None) -> State:
+        stats: Optional[dict] = None, trace: bool = False,
+        trace_capacity: Optional[int] = None) -> State:
     """Run the full simulation on the jobs' device; returns the final
     State. ``stats``, when given, receives the loop's ``iterations``
-    and ``acting_ticks`` (the ticks whose schedule pass ran)."""
+    and ``acting_ticks`` (the ticks whose schedule pass ran). ``trace``
+    records every scheduler event into the State's ring
+    (:func:`resolve_trace_capacity` rows; decode with
+    :func:`decode_trace`); off, the ring is zero-size."""
+    cap = resolve_trace_capacity(cfg, jobs, trace_capacity) if trace else 0
+    if trace and cap <= 0:
+        raise ValueError(f"trace_capacity must be > 0, got {cap}")
     st = init_state(jobs, cfg.cluster.n_nodes, cfg.cluster.node.as_tuple(),
-                    seed)
-    step = _make_step(cfg, jobs, cfg.cluster.n_nodes, time_mode=time_mode)
+                    seed, trace_capacity=cap)
+    step = _make_step(cfg, jobs, cfg.cluster.n_nodes, time_mode=time_mode,
+                      trace=trace)
     cache = _cache_from_state(jobs, st)
     N = jobs.submit.shape[0]
     iterations = acting = 0
@@ -848,6 +1032,22 @@ def run(cfg: SimConfig, jobs: Jobs, seed: int = 0,
         stats["iterations"] = iterations
         stats["acting_ticks"] = acting
     return st
+
+
+def trace_overflow(st: State) -> int:
+    """Ring rows dropped past capacity (0 with tracing off); non-zero
+    means the trace is truncated."""
+    if st.ev_buf.numel() == 0:
+        return 0
+    return max(st.ev_n - (st.ev_buf.shape[0] - 1), 0)
+
+
+def decode_trace(st: State):
+    """The State's ring as ``(list[obs.schema.Event], overflow)`` (read
+    to the host once); ``([], 0)`` for an untraced State."""
+    if st.ev_buf.numel() == 0:
+        return [], 0
+    return obs_ring.decode_ring(st.ev_buf, st.ev_n)
 
 
 def slowdown(jobs: Jobs, st: State) -> torch.Tensor:
@@ -882,7 +1082,8 @@ def masked_percentiles(vals: torch.Tensor, mask: torch.Tensor,
 def result_summary(jobs: Jobs, st: State) -> dict:
     """Percentile summary mirroring the JAX ``result_summary``: TE/BE
     slowdown p50/p95/p99, the preempted BE fraction, the preemption to
-    resume intervals, and the fallback counter (host floats)."""
+    resume intervals, the fallback counter and the ring's overflow
+    (host numbers)."""
     sd = slowdown(jobs, st)
     te = jobs.is_te & jobs.valid
     be = ~jobs.is_te & jobs.valid
@@ -896,5 +1097,5 @@ def result_summary(jobs: Jobs, st: State) -> dict:
         (st.last_resume - st.last_signal).to(F32), iv_mask,
         (50, 75, 95, 99))
     out["fallback_count"] = st.fallback_count
-    out["trace_overflow"] = 0
+    out["trace_overflow"] = trace_overflow(st)
     return out

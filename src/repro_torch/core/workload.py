@@ -14,7 +14,7 @@ import numpy as np
 
 from repro_torch.configs.cluster import (ClassDists, SimConfig, TruncNormal,
                                          WorkloadSpec)
-from repro_torch.core.simulator import FifoAdmission
+from repro_torch.core.simulator import Simulator
 from repro_torch.core.types import JobSet
 
 
@@ -100,9 +100,13 @@ def closed_loop_submit_times(cfg: SimConfig, js: JobSet) -> np.ndarray:
     load ... would be kept at 2.0 if they were scheduled by FIFO" —
     realized as a closed-loop FIFO run that admits the next job
     whenever the backlog drops below ``load``; the admit ticks become
-    the open-loop submit times used by every policy."""
+    the open-loop submit times used by every policy. The FIFO run is
+    the reference :class:`Simulator` with the config's backfill switch,
+    as in the JAX package."""
     fifo_cfg = dataclasses.replace(cfg, policy="fifo")
-    admit = FifoAdmission(fifo_cfg, js, cfg.workload.load).run()
+    sim = Simulator(fifo_cfg, js, admission_target=cfg.workload.load)
+    sim.run()
+    admit = sim.admit_time
     bad = np.flatnonzero(admit < 0)
     if bad.size:
         raise ValueError(

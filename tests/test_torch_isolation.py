@@ -62,6 +62,21 @@ def test_imports_with_jax_and_repro_blocked():
     assert int(out.stdout.strip()) == n_modules >= 15
 
 
+def test_module_walk_covers_obs_and_reference_engine():
+    """The blocked-import walk above reaches the event-schema package and
+    the numpy reference engine's modules."""
+    names = {m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                                   "repro_torch.")}
+    assert {"repro_torch.obs", "repro_torch.obs.schema",
+            "repro_torch.obs.ring", "repro_torch.obs.export",
+            "repro_torch.obs.timeseries", "repro_torch.core.engine.core",
+            "repro_torch.core.engine.queues",
+            "repro_torch.core.engine.preemption",
+            "repro_torch.core.engine.placement",
+            "repro_torch.core.simulator", "repro_torch.core.metrics",
+            "repro_torch.core.sim_torch"} <= names
+
+
 def test_source_scan_finds_no_jax_or_repro_import():
     offenders = [f"{p.relative_to(ROOT)}: {m.group(0).strip()}"
                  for p in _sources()

@@ -166,7 +166,7 @@ def test_metrics_match_reference():
         slowdown = sd
         is_te = te
 
-    assert tmetrics.slowdown_table(sd, te) == jmetrics.slowdown_table(_Res)
+    assert tmetrics.slowdown_table(_Res) == jmetrics.slowdown_table(_Res)
 
 
 def test_scenarios_build_paper_synthetic_only():
