@@ -13,13 +13,19 @@ two main paths through the entry points a user calls:
   backfill), then the paper's FIFO-vs-FitGpp comparison at the paper's
   scale (84 nodes, 2**16 jobs) through
   ``repro_torch.api.compare_policies``, then gang-heavy on the same 84
-  nodes (2**15 jobs) under fifo, fitgpp and fitgpp with backfill
+  nodes (2**14 jobs) under fifo, fitgpp and fitgpp with backfill
   through ``repro_torch.api.run_experiment``; then the host numpy
   reference engine (``engine="reference"``) on the paper's cell, the
   same-host baseline, held against the torch engine's results; then
-  the torch engine traced on the same cell (its event ring), each
-  stream validated, decomposed per job and held against the reference
-  engine's stream;
+  the torch engine traced on the same cell (its event ring; fitgpp at
+  2**16 jobs, held against phase paper's untraced run, fifo at 2**15),
+  each stream validated, decomposed per job and held against the
+  reference engine's stream;
+* the sweep fabric: the batched engine's kernel path against its plain
+  path (phase sweep_engine), then Fig. 4 at the paper's scale (fitgpp,
+  five values of s, 4 workloads of 2**16 jobs on 84 nodes) as one
+  ``repro_torch.core.sweep_fabric.run_table`` on the card, its s = 4
+  trials held against the reference engine;
 * dense-LM serving: stablelm-12b at its published widths and full depth
   (40 layers, bf16, random weights from seed 0) prefills 4 prompts of
   2048 tokens through the flash-attention kernel and decodes 32 tokens
@@ -34,8 +40,10 @@ read just after. Prints one JSON line per phase, then a
 ``nvidia-smi`` reports them, and last ``{"ok": true, "device": {...}}``.
 Exits non-zero, before printing any result, when a phase fails or no
 CUDA device is present. With no arguments every phase runs;
-``--phases`` runs a subset (for iterating on one part). Imports no JAX
-and nothing of the JAX package.
+``--phases`` runs a subset (for iterating on one part) and can name
+phase sweep_b1, which the default run leaves out: the sweep engine on
+one trial beside the single-trial engine. Imports no JAX and nothing
+of the JAX package.
 """
 import argparse
 import dataclasses
@@ -80,13 +88,36 @@ KERNEL_MANY_NODES_TIMED = (1, 1024, 8192)
 GANG_SCENARIOS = ("gang-heavy", "gang-trace-mix", "philly-sample",
                   "pai-sample")
 GANG_ENGINE_JOBS = 384
-# phase gang: the paper's 84 nodes with half its backlog; at 2**16 jobs
-# the whole script took 902 s of its 1200 s limit on a slow host
-GANG_JOBS = 2 ** 15
+# phase gang: the paper's 84 nodes with a quarter of its backlog; at
+# 2**16 jobs the whole script took 902 s of its 1200 s limit on a slow
+# host, and with phases sweep_engine and sweep 1370.8 s at 2**15
+GANG_JOBS = 2 ** 14
+# phase trace's runs (and the reference engine's traced runs they are
+# held against): fitgpp at the paper's 2**16, held against phase
+# paper's untraced run; fifo cut to 2**15 for the same limit
+TRACE_JOBS = {"fifo": 2 ** 15, "fitgpp": PAPER_JOBS}
 # phase gang's pass shape, held bit-equal in phase kernel twice: as a
 # queue pass, and built like fitgpp's gang-score pass
 KERNEL_GANG_SHAPE = (1, GANG_JOBS, PAPER_NODES)
 ENGINE_POLICIES = ("fifo", "fitgpp", "minsize", "lrtp", "srtp", "rand")
+# phase sweep: Fig. 4 as benchmarks/paper_tables.py runs it at
+# REPRO_BENCH_SCALE=full (fitgpp, P = 1, 8 workloads of 2**16 jobs from
+# workload.generate at seeds 1000 * i, 84 nodes), every trial in one
+# batched run_table on the card
+SWEEP_S = (0.0, 1.0, 2.0, 4.0, 8.0)
+# cut from the figure's 8 workloads to 4 (20 trials) for the script's
+# 1200 s limit (1370.8 s with 8 and phases gang and trace uncut)
+SWEEP_WORKLOADS = 4
+SWEEP_JOBS = PAPER_JOBS
+# its pass shapes, held bit-equal and timed in phase kernel: the
+# figure's 40 trials and the 20 phase sweep runs
+KERNEL_SWEEP_SHAPES = [(len(SWEEP_S) * w, SWEEP_JOBS, PAPER_NODES)
+                       for w in (8, SWEEP_WORKLOADS)]
+# phase sweep_engine: the JAX sweep selftest's grid (burst-storm, 8
+# nodes, 64 jobs, 3 seeds x s in {0, 2, 4}, P = 1) padded with one
+# sentinel trial, and gang-heavy with backfill at 84 nodes
+SWEEP_ENGINE_GRID = ("burst-storm", 8, 64, 3, (0.0, 2.0, 4.0))
+SWEEP_ENGINE_GANG = ("gang-heavy", PAPER_NODES, GANG_ENGINE_JOBS, 4, (4.0,))
 # flash attention: the JAX suite's shapes (tests/test_kernels.py) and
 # more, each in f32 and bf16, (B, Sq, Skv, H, KV, hd, causal, window, softcap)
 FLASH_SHAPES = [
@@ -356,8 +387,9 @@ def phase_build():
 def phase_kernel(torch, np, shapes=KERNEL_SHAPES):
     """Kernel against plain version, all 8 fields bit-equal, at
     KERNEL_SHAPES, an empty-mask case, KERNEL_WIDE_SHAPE,
-    KERNEL_NODES_SHAPES, KERNEL_MANY_NODES_TIMED and KERNEL_GANG_SHAPE
-    (a random pass and a gang-score pass); each call counted as one
+    KERNEL_NODES_SHAPES, KERNEL_MANY_NODES_TIMED, KERNEL_GANG_SHAPE
+    (a random pass and a gang-score pass) and KERNEL_SWEEP_SHAPES (also
+    timed, with their bounds); each call counted as one
     launch, and the device kernels of one call at the timed shape
     counted by the profiler."""
     from repro_torch.kernels import schedule_step as ss
@@ -365,7 +397,8 @@ def phase_kernel(torch, np, shapes=KERNEL_SHAPES):
         + [(1, 1000, 84, "empty"), (*KERNEL_WIDE_SHAPE, "rand")] \
         + [(*shape, "rand") for shape in KERNEL_NODES_SHAPES] \
         + [(*KERNEL_MANY_NODES_TIMED, "rand"), (*KERNEL_GANG_SHAPE, "rand"),
-           (*KERNEL_GANG_SHAPE, "gang_score")]
+           (*KERNEL_GANG_SHAPE, "gang_score")] \
+        + [(*shape, "rand") for shape in KERNEL_SWEEP_SHAPES]
     max_err = 0.0
     for seed, (B, J, M, kind) in enumerate(cases):
         args = batched_args(torch, np, B, J, M, seed, kind)
@@ -384,6 +417,7 @@ def phase_kernel(torch, np, shapes=KERNEL_SHAPES):
             check(torch.equal(x, y), f"schedule_step {name} differs from "
                   f"the plain version at B={B} J={J} M={M} (max {err})")
         del args, k, p
+        free_cuda(torch)
     B, J, M = 1, PAPER_JOBS, PAPER_NODES
     args = batched_args(torch, np, B, J, M, 99)
     ms = time_kernel_ms(torch, ss, args)
@@ -407,6 +441,19 @@ def phase_kernel(torch, np, shapes=KERNEL_SHAPES):
         "bound_ms": bound_ms(*shape, int(nodes_args[4].sum()))[0]}
     del nodes_args
     free_cuda(torch)
+    sweep_pass = []
+    for shape in KERNEL_SWEEP_SHAPES:
+        sweep_args = batched_args(torch, np, *shape, 97)
+        sweep_bound, sweep_bound_by = bound_ms(*shape,
+                                               int(sweep_args[4].sum()))
+        sweep_pass.append({
+            "shape": dict(zip("BJM", shape)),
+            "ms": time_kernel_ms(torch, ss, sweep_args),
+            "plain_ms": time_ms(torch, lambda: ss.schedule_step_torch(
+                *sweep_args)),
+            "bound_ms": sweep_bound, "bound_by": sweep_bound_by})
+        del sweep_args
+        free_cuda(torch)
     result = {"name": "schedule_step", "route": "cuda",
               "source": "src/repro_torch/kernels/csrc/schedule_step.cu",
               "replaces": "src/repro/kernels/schedule_step.py:233",
@@ -415,7 +462,7 @@ def phase_kernel(torch, np, shapes=KERNEL_SHAPES):
               "kernels_per_pass": len(per_pass),
               "kernels_of_one_pass": per_pass,
               "wrapper_idle_ms": wrapper_ms, "plain_idle_ms": plain_idle_ms,
-              "many_nodes": many_nodes,
+              "many_nodes": many_nodes, "sweep_pass": sweep_pass,
               "timed_shape": {"B": B, "J": J, "M": M}}
     emit({"phase": "kernel", "cases": len(cases), "all_equal": True,
           "gang_cases": {"shape": dict(zip("BJM", KERNEL_GANG_SHAPE)),
@@ -688,9 +735,9 @@ def phase_reference(np, runs, n_jobs=PAPER_JOBS):
     only, never the card) on the paper's cell under fifo and fitgpp,
     untraced; its results held against phase paper's torch runs (finish
     ticks, preemption counts and the slowdown table, bit for bit, where
-    neither run drew a random fallback). Then the traced fifo run (and
-    fitgpp's, where neither engine fell back) that phase trace compares
-    streams with."""
+    neither run drew a random fallback). Then the traced fifo and
+    fitgpp runs at their TRACE_JOBS sizes that phase trace compares
+    streams with (fitgpp's where neither engine fell back)."""
     from repro_torch.core import metrics
     from repro_torch.core.types import SimResult
     _, js, build_s = runs.jobset(n_jobs)
@@ -736,30 +783,28 @@ def phase_reference(np, runs, n_jobs=PAPER_JOBS):
     # the traced runs phase trace compares streams with
     traced = {}
     for policy in ("fifo", "fitgpp"):
-        if policy == "fitgpp" and (out["fitgpp"]["fallback_count"]
-                                   or runs.paper.get("fitgpp", {}).get(
-                                       "fallback_count", 0)):
-            continue
-        res, fallback, wall = reference_run(runs, policy, n_jobs,
-                                            trace=True)
+        res, fallback, wall = reference_run(runs, policy,
+                                            TRACE_JOBS[policy], trace=True)
         runs.reference_traces[policy] = (res.trace, fallback)
-        traced[policy] = {"wall_s": wall, "events": len(res.trace)}
+        traced[policy] = {"n_jobs": TRACE_JOBS[policy], "wall_s": wall,
+                          "events": len(res.trace)}
     emit({"phase": "reference", "scenario": "paper-synthetic",
           "n_jobs": n_jobs, "n_nodes": PAPER_NODES, "build_s": build_s,
           "te_p95_cut": 1.0 - fit["p95"] / fifo["p95"],
           "runs": out, "traced": traced})
 
 
-def phase_trace(torch, np, runs, n_jobs=PAPER_JOBS):
+def phase_trace(torch, np, runs):
     """The torch engine traced on the paper's cell under fifo and
     fitgpp (event mode, the default ring capacity), through
     ``api.run_experiment(trace=True)``: no overflow, a valid stream,
     the slowdown decomposition's identity for every job (service equal
     to the execution time, finish to the State's), the stream equal to
     the reference engine's (fifo; fitgpp where neither fell back) and,
-    where phase paper ran, every other State field equal to its
-    untraced run. The fitgpp stream is written as CSV and Perfetto JSON
-    and the CSV read back."""
+    for fitgpp (run at the paper's 2**16 jobs; fifo at 2**15,
+    TRACE_JOBS) where phase paper ran, every other State field and the
+    launches equal to its untraced run. The fitgpp stream is written as
+    CSV and Perfetto JSON and the CSV read back."""
     from repro_torch import api
     from repro_torch.core import metrics, sim_torch
     from repro_torch.kernels import ops
@@ -768,7 +813,7 @@ def phase_trace(torch, np, runs, n_jobs=PAPER_JOBS):
     t0 = time.perf_counter()
     out, streams = {}, {}
     for policy in ("fifo", "fitgpp"):
-        cfg, js, _ = runs.jobset(n_jobs)
+        cfg, js, _ = runs.jobset(TRACE_JOBS[policy])
         t1 = time.perf_counter()
         r = api.run_experiment("paper-synthetic", policy, cfg=cfg, jobs=js,
                                mode="event", trace=True)
@@ -803,7 +848,7 @@ def phase_trace(torch, np, runs, n_jobs=PAPER_JOBS):
                "preempted_jobs": sum(d.grace_stall > 0 or d.requeue_wait > 0
                                      for d in dec.values())}
         paper = runs.paper.get(policy)
-        if paper is not None:
+        if paper is not None and js.n == PAPER_JOBS:
             untraced = paper["state"]
             diff = [f for f in sim_torch.state_diff_fields(
                 untraced, sim_torch.state_to_numpy(st))
@@ -817,8 +862,8 @@ def phase_trace(torch, np, runs, n_jobs=PAPER_JOBS):
             run["equal_to_untraced"] = True
         ref = runs.reference_traces.get(policy)
         if ref is None and policy == "fifo":
-            res, fallback, _ = reference_run(runs, "fifo", n_jobs,
-                                             trace=True)
+            res, fallback, _ = reference_run(runs, "fifo",
+                                             TRACE_JOBS["fifo"], trace=True)
             ref = (res.trace, fallback)
         if ref is not None and (
                 policy == "fifo" or ref[1] == r.fallback_count == 0):
@@ -855,6 +900,284 @@ def phase_trace(torch, np, runs, n_jobs=PAPER_JOBS):
           "n_nodes": PAPER_NODES, "wall_s": wall, "launches": launches,
           "export_s": export_s, **sizes, "runs": out})
     return launches
+
+
+def sweep_table(np, scenario, n_nodes, n_jobs, n_seeds, s_vals):
+    """(cfg, per-trial JobSets, TrialTable) of a sweep_engine grid: the
+    scenario at seeds 0..n_seeds-1, each under every s of ``s_vals``,
+    P = 1, simulation seed = the workload seed."""
+    from repro_torch import api, scenarios
+    from repro_torch.core import sweep_fabric
+    cfg = api.make_config("fifo", n_jobs=n_jobs, n_nodes=n_nodes, seed=0)
+    jobsets = [scenarios.build(scenario, dataclasses.replace(cfg, seed=k))
+               for k in range(n_seeds)]
+    trials = [(js, sv, k) for sv in s_vals for k, js in enumerate(jobsets)]
+    table = sweep_fabric.build_table(
+        [t[0] for t in trials], np.asarray([t[1] for t in trials],
+                                           np.float32), 1,
+        np.asarray([t[2] for t in trials], np.uint32))
+    return cfg, trials, table
+
+
+def batched_kernel_vs_plain(torch, np, cfg, table, mode, what):
+    """One batched engine run of ``table`` on the card along the kernel
+    path and along the plain path (``ops._FORCE_PLAIN``); the two final
+    batched States must be equal field for field. Returns the kernel
+    path's State (numpy), its stats and the two wall times."""
+    from repro_torch.core import sim_batch
+    from repro_torch.kernels import ops
+    jobs = dataclasses.replace(table.jobs, **{
+        f.name: getattr(table.jobs, f.name).cuda()
+        for f in dataclasses.fields(table.jobs)})
+    out = {}
+    for path, force in (("kernel", False), ("plain", True)):
+        ops._FORCE_PLAIN = force
+        try:
+            stats = {}
+            t0 = time.perf_counter()
+            st = sim_batch.run(cfg, jobs, table.s.cuda(), table.P.cuda(),
+                               table.seed.cuda(), time_mode=mode,
+                               stats=stats)
+            torch.cuda.synchronize()
+            out[path] = (sim_batch.state_to_numpy(st), stats,
+                         time.perf_counter() - t0)
+        finally:
+            ops._FORCE_PLAIN = False
+    (k_st, k_stats, k_s), (p_st, _, p_s) = out["kernel"], out["plain"]
+    diff = [f for f in k_st if not np.array_equal(k_st[f], p_st[f])]
+    check(not diff, f"{what}: kernel-path batched State differs from the "
+          f"plain path in {diff}")
+    check(k_stats["launches"] == k_stats["passes"] > 0,
+          f"{what}: {k_stats['launches']} launches for "
+          f"{k_stats['passes']} passes")
+    return k_st, k_stats, k_s, p_s
+
+
+def lanes_vs_sim_torch(np, cfg, trials, st, stats, mode, policy):
+    """Each lane that no draw decided against ``sim_torch.run`` on its
+    trial on the card (every State field but the generator and the
+    ring; the lane's iteration counts too). Returns the lanes
+    compared."""
+    from repro_torch.core import sim_batch, sim_torch
+    if policy == "rand":
+        return 0
+    n = 0
+    for b, (js, sv, seed) in enumerate(trials):
+        if stats["lane_drawn"][b]:
+            continue
+        c = dataclasses.replace(cfg, policy=policy, s=float(sv),
+                                max_preemptions=1)
+        one = sim_torch.jobs_from_jobset(js, "cuda")
+        sst = {}
+        ref = sim_torch.state_to_numpy(sim_torch.run(
+            c, one, int(seed), time_mode=mode, stats=sst))
+        lane = sim_batch.lane(st, b)
+        N = js.n
+        got = {k: (v[:N] if np.ndim(v) >= 1 and k not in ("free",
+                                                          "pending_free")
+                   else v) for k, v in lane.items()}
+        diff = [f for f in got if not np.array_equal(got[f], ref[f])]
+        check(not diff, f"sweep_engine {policy}/{mode} lane {b}: differs "
+              f"from sim_torch.run in {diff}")
+        check(stats["lane_iterations"][b] == sst["iterations"]
+              and stats["lane_acting"][b] == sst["acting_ticks"],
+              f"sweep_engine {policy}/{mode} lane {b}: iteration counts "
+              "differ from sim_torch.run")
+        n += 1
+    return n
+
+
+def phase_sweep_engine(torch, np):
+    """The batched engine's kernel path against its plain path on the
+    card, bit for bit on every State field: the JAX sweep selftest's
+    grid (burst-storm, 8 nodes, 64 jobs, 3 seeds x s in {0, 2, 4},
+    P = 1, one sentinel trial) under every policy in event and tick
+    mode; gang-heavy with backfill at 84 nodes, 384 jobs, 4 seeds, under
+    every policy in event mode. Each lane that no draw decided is held
+    against sim_torch.run on its trial (non-RAND policies)."""
+    from repro_torch.core import sweep_fabric
+    zero_launches()
+    t0 = time.perf_counter()
+    runs, compared = [], 0
+    for grid, policies, modes, backfill in (
+            (SWEEP_ENGINE_GRID, ENGINE_POLICIES, ("event", "tick"), False),
+            (SWEEP_ENGINE_GANG, ENGINE_POLICIES, ("event",), True)):
+        cfg, trials, table = sweep_table(np, *grid)
+        if not backfill:
+            table = sweep_fabric.pad_table(table, len(trials) + 1)
+        for policy in policies:
+            pcfg = dataclasses.replace(cfg, policy=policy,
+                                       backfill=backfill)
+            for mode in modes:
+                what = f"{grid[0]}/{policy}/{mode}"
+                st, stats, k_s, p_s = batched_kernel_vs_plain(
+                    torch, np, pcfg, table, mode, what)
+                n_jobs = st["state"].shape[1]
+                if not backfill:      # the sentinel trial never ran
+                    check(st["t"][-1] == 0 and stats["lane_iterations"][-1]
+                          == 0, f"{what}: the sentinel trial ran")
+                check(bool((st["n_done"] == n_jobs).all()),
+                      f"{what}: not every trial finished")
+                n = lanes_vs_sim_torch(np, pcfg, trials, st, stats, mode,
+                                       policy)
+                compared += n
+                runs.append({
+                    "grid": grid[0], "policy": policy, "mode": mode,
+                    "backfill": backfill, "trials": int(st["t"].shape[0]),
+                    "lanes_vs_sim_torch": n,
+                    "preemptions": int(st["preempt_count"].sum()),
+                    "fallback_count": st["fallback_count"].tolist(),
+                    "iterations": stats["iterations"],
+                    "host_reads": stats["host_reads"],
+                    "launches": stats["launches"],
+                    "kernel_path_s": k_s, "plain_path_s": p_s})
+    check(compared > 0, "sweep_engine: no lane was held against sim_torch")
+    emit({"phase": "sweep_engine", "equal": True, "cases": len(runs),
+          "lanes_vs_sim_torch": compared,
+          "seconds": time.perf_counter() - t0, "runs": runs})
+
+
+def phase_sweep(torch, np):
+    """The slice at full width: Fig. 4 (fitgpp, s in SWEEP_S, P = 1,
+    SWEEP_WORKLOADS workloads of 2**16 jobs on 84 nodes, event mode) as
+    one ``sweep_fabric.run_table(out="per_job")`` on the card, pooled
+    per s; the s = 4 lanes held job for job against the port's numpy
+    reference engine on the same host (finish ticks through the Eq. 5
+    slowdown, preemption counts) wherever neither side drew a used
+    fallback. Returns the schedule_step launches of the run."""
+    from repro_torch import api
+    from repro_torch.core import simulator, sweep_fabric, workload
+    from repro_torch.kernels import ops
+    cfg = api.make_config("fitgpp", n_jobs=SWEEP_JOBS, n_nodes=PAPER_NODES,
+                          seed=0, s=4.0, P=1)
+    t0 = time.perf_counter()
+    jobsets = [workload.generate(cfg, seed=cfg.seed + 1000 * i)
+               for i in range(SWEEP_WORKLOADS)]
+    trials = [(sv, i) for sv in SWEEP_S for i in range(SWEEP_WORKLOADS)]
+    table = sweep_fabric.build_table(
+        [jobsets[i] for _, i in trials],
+        np.asarray([sv for sv, _ in trials], np.float32), 1,
+        np.full(len(trials), cfg.seed, np.uint32))
+    build_s = time.perf_counter() - t0
+    zero_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = sweep_fabric.run_table(cfg, table, out="per_job")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ops.LAUNCHES["schedule_step"]
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    es = res.engine_stats
+    check(launches > 0 and launches == es["launches"] == es["passes"],
+          f"sweep: {launches} schedule_step launches for {es['passes']} "
+          "passes")
+    sd = res.stats["slowdown"]
+    check(sd.shape == (len(trials), SWEEP_JOBS)
+          and bool(np.isfinite(sd[res.stats["valid"]]).all()),
+          "sweep: non-finite or misshapen slowdowns")
+    check(bool((res.stats["makespan"] > 0).all()), "sweep: a trial did "
+          "not run")
+    pooled = {}
+    for sv in SWEEP_S:
+        cell = sweep_fabric.pooled_tables(
+            res, [b for b, (v, _) in enumerate(trials) if v == sv])
+        check(all(np.isfinite(v) for c in ("TE", "BE")
+                  for v in cell[c].values()), f"sweep s={sv}: non-finite "
+              "pooled percentiles")
+        pooled[str(sv)] = {"TE_p95": cell["TE"]["p95"],
+                           "BE_p50": cell["BE"]["p50"],
+                           "preempted_frac": cell["preempted_frac"]}
+    # the s = 4 lanes against the numpy reference engine
+    ref_s, equal, drawn = [], 0, es["lane_drawn"].tolist()
+    c4 = dataclasses.replace(cfg, s=4.0)
+    for i, js in enumerate(jobsets):
+        b = trials.index((4.0, i))
+        t1 = time.perf_counter()
+        sim = simulator.Simulator(c4, js)
+        ref = sim.run(mode="event")
+        ref_s.append(time.perf_counter() - t1)
+        if sim.policy.fallback_count or drawn[b]:
+            continue
+        want = np.float32(1.0) + (ref.finish - ref.submit - ref.exec_total
+                                  ).astype(np.float32) \
+            / ref.exec_total.astype(np.float32)
+        check(np.array_equal(sd[b], want), f"sweep lane {b}: finish ticks "
+              "differ from the reference engine's")
+        check(np.array_equal(res.stats["preempt_count"][b],
+                             ref.preempt_count), f"sweep lane {b}: "
+              "preemption counts differ from the reference engine's")
+        equal += 1
+    emit({"phase": "sweep", "figure": "fig4", "policy": "fitgpp",
+          "n_jobs": SWEEP_JOBS, "n_nodes": PAPER_NODES,
+          "s_values": list(SWEEP_S), "workloads": SWEEP_WORKLOADS,
+          "trials": len(trials), "build_s": build_s, "wall_s": wall,
+          "wall_per_trial_s": wall / len(trials),
+          "reference_wall_per_trial_s": statistics.mean(ref_s),
+          "reference_walls_s": ref_s,
+          "iterations": es["iterations"],
+          "acting_iterations": es["acting_iterations"],
+          "host_reads": es["host_reads"], "launches": launches,
+          "reads_per_iteration": es["host_reads"] / es["iterations"],
+          "launches_per_iteration": launches / es["iterations"],
+          "lane_iterations": es["lane_iterations"].tolist(),
+          "lane_drawn": drawn,
+          "fallback_count": res.stats["fallback_count"].tolist(),
+          "peak_device_gb": peak_gb, "pooled": pooled,
+          "s4_lanes_equal_to_reference": equal})
+    check(equal > 0, "sweep: no s = 4 lane could be held against the "
+          "reference engine")
+    return launches
+
+
+def phase_sweep_b1(torch, np, runs):
+    """Not in the default run (``--phases build,paper,sweep_b1``): phase
+    paper's fitgpp trial (paper-synthetic, 84 nodes, 2**16 jobs, seed 0,
+    event mode) as a one-trial ``sweep_fabric.run_table`` on the card,
+    its wall beside phase paper's ``sim_torch`` run of the same trial in
+    the same process, and its per-job slowdowns, preemption counts and
+    makespan held against that run's where neither drew a random
+    fallback. The number that decides whether ``sim_torch`` should
+    become the B = 1 case of ``sim_batch``."""
+    from repro_torch.core import sweep_fabric
+    from repro_torch.kernels import ops
+    paper = runs.paper.get("fitgpp")
+    check(paper is not None, "sweep_b1: needs phase paper in the same call")
+    cfg0, js, _ = runs.jobset(PAPER_JOBS)
+    cfg = dataclasses.replace(cfg0, policy="fitgpp")
+    table = sweep_fabric.build_table(
+        [js], np.asarray([cfg.s], np.float32), cfg.max_preemptions,
+        np.asarray([cfg.seed], np.uint32))
+    zero_launches()
+    t0 = time.perf_counter()
+    res = sweep_fabric.run_table(cfg, table, out="per_job")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ops.LAUNCHES["schedule_step"]
+    es = res.engine_stats
+    check(launches > 0 and launches == es["passes"], f"sweep_b1: "
+          f"{launches} schedule_step launches for {es['passes']} passes")
+    st = paper["state"]
+    exact = not es["lane_drawn"][0] and paper["fallback_count"] == 0
+    if exact:
+        want = np.float32(1.0) + (
+            st["finish"].astype(np.int64) - js.submit - js.exec_total
+        ).astype(np.float32) / js.exec_total.astype(np.float32)
+        check(np.array_equal(res.stats["slowdown"][0], want),
+              "sweep_b1: finish ticks differ from phase paper's run")
+        check(np.array_equal(res.stats["preempt_count"][0],
+                             st["preempt_count"]), "sweep_b1: preemption "
+              "counts differ from phase paper's run")
+        check(int(res.stats["makespan"][0]) == int(st["t"]), "sweep_b1: "
+              "makespan differs from phase paper's run")
+    emit({"phase": "sweep_b1", "policy": "fitgpp", "n_jobs": PAPER_JOBS,
+          "n_nodes": PAPER_NODES, "wall_s": wall,
+          "sim_torch_wall_s": paper["seconds"],
+          "sim_batch_over_sim_torch": wall / paper["seconds"],
+          "iterations": es["iterations"],
+          "acting_iterations": es["acting_iterations"],
+          "host_reads": es["host_reads"], "launches": launches,
+          "sim_torch_launches": paper["launches"],
+          "equal_to_sim_torch": exact})
 
 
 def flash_flops(shape):
@@ -1974,16 +2297,20 @@ def phase_serve_family_card_vs_cpu(torch, arch, prompt_len=80):
 
 
 PHASES = ("build", "kernel", "flash_kernel", "ssd_kernel", "lru_kernel",
-          "engine", "paper", "gang", "reference", "trace", "serve",
-          "serve_f32", "serve_card_vs_cpu", "serve_ssm", "serve_hybrid")
+          "engine", "sweep_engine", "paper", "gang", "reference", "trace",
+          "sweep", "serve", "serve_f32", "serve_card_vs_cpu", "serve_ssm",
+          "serve_hybrid")
+# run only when named in --phases
+EXTRA_PHASES = ("sweep_b1",)
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default=",".join(PHASES),
-                    help="comma-separated subset of " + ",".join(PHASES))
+                    help="comma-separated subset of "
+                    + ",".join(PHASES + EXTRA_PHASES))
     phases = set(ap.parse_args(argv).phases.split(","))
-    unknown = phases - set(PHASES)
+    unknown = phases - set(PHASES + EXTRA_PHASES)
     if unknown:
         ap.error(f"unknown phases {sorted(unknown)}")
     import torch
@@ -2011,6 +2338,8 @@ def main(argv=None) -> int:
             kernels.append(phase_lru_kernel(torch))
         if "engine" in phases:
             phase_engine(torch)
+        if "sweep_engine" in phases:
+            phase_sweep_engine(torch, np)
         launches = {}         # kernel -> {main path: launches}
         runs = EngineRuns()
         if "paper" in phases:
@@ -2024,6 +2353,11 @@ def main(argv=None) -> int:
         if "trace" in phases:
             launches.setdefault("schedule_step", {})["trace"] = \
                 phase_trace(torch, np, runs)
+        if "sweep" in phases:
+            launches.setdefault("schedule_step", {})["sweep"] = \
+                phase_sweep(torch, np)
+        if "sweep_b1" in phases:
+            phase_sweep_b1(torch, np, runs)
         if "serve" in phases:
             launches["flash_attention"] = {"serve": phase_serve(torch)}
         if "serve_f32" in phases:

@@ -20,6 +20,15 @@ same fields as the JAX package's:
 (``obs.schema.Event`` rows) on either engine; write it with
 ``obs.export.write_trace`` (Perfetto JSON or CSV) or replay it with
 ``obs.timeseries``.
+
+Batched studies go through the same module: :func:`sensitivity_grid`,
+:func:`scenario_sweep` and :func:`run_sweep` (``core/sweep.py``) and
+:func:`run_table` / :func:`build_table` / :func:`pooled_tables`, the
+sweep fabric underneath them (``core/sweep_fabric.py``): one trial
+table, every trial of a grid in one batched engine run
+(``core/sim_batch.py``) on ``device`` (the current CUDA device unless
+the caller passes one). :func:`mesh_for_sweep` says how many devices a
+sweep uses: one (multi-device sweeps are not ported yet).
 """
 from __future__ import annotations
 
@@ -34,11 +43,25 @@ from repro_torch import device as _device
 from repro_torch import scenarios
 from repro_torch.configs.cluster import SimConfig
 from repro_torch.core import metrics, sim_torch, simulator
+from repro_torch.core.policy_registry import get_policy, policy_names
+from repro_torch.core.sweep import run_sweep, scenario_sweep, sensitivity_grid
+from repro_torch.core.sweep_fabric import (SweepResult, TrialTable,
+                                           build_table, pooled_tables,
+                                           run_table)
 from repro_torch.core.types import JobSet
 from repro_torch.kernels import ops
+from repro_torch.launch.mesh import mesh_for_sweep
 
 ENGINES = ("torch", "reference")
 DEFAULT_SCENARIO = "paper-synthetic"
+
+__all__ = [
+    "DEFAULT_SCENARIO", "ENGINES", "ExperimentResult", "RunOutput",
+    "SweepResult", "TrialTable", "build_table", "compare_policies",
+    "get_policy", "make_config", "mesh_for_sweep", "policy_names",
+    "pooled_tables", "run_experiment", "run_sweep", "run_table",
+    "scenario_names", "scenario_sweep", "sensitivity_grid",
+]
 
 scenario_names = scenarios.scenario_names
 

@@ -94,3 +94,20 @@ def pooled_tables(pool: Dict[str, np.ndarray]) -> Dict:
             ">=3": float((pc >= 3).sum()) / n_be,
         },
     }
+
+
+def format_table(rows: Dict[str, Dict], title: str = "") -> str:
+    """rows: policy -> {'TE': {p50..}, 'BE': {...}} -> aligned text."""
+    lines = []
+    if title:
+        lines.append(title)
+    hdr = f"{'policy':12s} | {'TE p50':>8s} {'p95':>8s} {'p99':>8s} | " \
+          f"{'BE p50':>8s} {'p95':>8s} {'p99':>8s}"
+    lines.append(hdr)
+    lines.append("-" * len(hdr))
+    for name, r in rows.items():
+        te, be = r["TE"], r["BE"]
+        lines.append(
+            f"{name:12s} | {te['p50']:8.2f} {te['p95']:8.2f} {te['p99']:8.2f}"
+            f" | {be['p50']:8.2f} {be['p95']:8.2f} {be['p99']:8.2f}")
+    return "\n".join(lines)

@@ -43,20 +43,19 @@ def minsize_score(jobs, cand, node_cap, s):
     return size_eq1_torch(jobs.demand, node_cap)
 
 
-def lrtp_rank(st, jobs, gen):
+def lrtp_rank(st, jobs, uniform):
     """Big-C's LRTP: longest remaining time preempted first."""
     return st.remaining.float()
 
 
-def srtp_rank(st, jobs, gen):
+def srtp_rank(st, jobs, uniform):
     """Shortest remaining time preempted first."""
     return -st.remaining.float()
 
 
-def rand_rank(st, jobs, gen):
+def rand_rank(st, jobs, uniform):
     """Random victims: one uniform draw per job per selection."""
-    return torch.rand(st.remaining.shape, generator=gen,
-                      device=st.remaining.device)
+    return uniform()
 
 
 # ---------------------------------------------------------------------------

@@ -6,8 +6,10 @@ Each entry declares what the engine needs of a decision rule:
 * ``kind`` — ``"score"``: ``score(jobs, cand, node_cap, s) -> (N,)``,
   lower = better victim; the engine applies Eq. 2, the P cap, the Eq. 4
   masked argmin and the paper's random fallback. ``"rank"``:
-  ``rank(state, jobs, gen) -> (N,)``, higher = preempt first, consumed
-  by the signal-until-the-TE-fits loop (may draw from ``gen``);
+  ``rank(state, jobs, uniform) -> (N,)``, higher = preempt first,
+  consumed by the signal-until-the-TE-fits loop; ``uniform()`` draws
+  one uniform per job from the engine's random source (a rank that
+  calls it draws once a selection);
 * ``victim_from_pass`` — the width-1 victim is read from the fused
   schedule pass (``kernels/ops.schedule_step``'s ``.victim``) instead
   of a plain masked argmin over ``score``, and a gang TE's victim

@@ -289,9 +289,14 @@ def _cache_from_state(jobs: Jobs, st: State) -> _Cache:
 # primitives
 # ---------------------------------------------------------------------------
 
+# ``_node_fits``, ``_gang_fit``, ``_best_victim_node`` and the masked
+# argmin/argmax also take a leading batch axis (free (B, M, 3), demand
+# (B, N, 3), d (B, 3), w (B,), masks (B, N)) and reduce per row: the
+# batched engine (``core/sim_batch.py``) runs them on B trials at once.
+
 def _node_fits(free: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
     """(M,) bool: nodes whose free vector covers the demand ``d``."""
-    return covers(free, (d - _EPS)[None, :])
+    return covers(free, (d - _EPS).unsqueeze(-2))
 
 
 def _fit_counts(free: torch.Tensor, demand: torch.Tensor) -> torch.Tensor:
@@ -300,13 +305,14 @@ def _fit_counts(free: torch.Tensor, demand: torch.Tensor) -> torch.Tensor:
         .sum(1, dtype=I32)
 
 
-def _gang_fit(free: torch.Tensor, d: torch.Tensor, w: int):
+def _gang_fit(free: torch.Tensor, d: torch.Tensor, w):
     """All-or-nothing first fit: (ok, mask of the first ``w`` nodes
     whose free vector covers the per-node demand ``d``); the mask is
     all-False when the gang does not fit. ``ok`` stays on the device."""
     fits = _node_fits(free, d)
-    ok = fits.sum() >= w
-    return ok, fits & (fits.cumsum(0) <= w) & ok
+    w = torch.as_tensor(w, device=free.device)
+    ok = fits.sum(-1) >= w
+    return ok, fits & (fits.cumsum(-1) <= w.unsqueeze(-1)) & ok.unsqueeze(-1)
 
 
 def _gang_fits(free: torch.Tensor, demand: torch.Tensor,
@@ -333,22 +339,23 @@ def _best_victim_node(free, assign, demand, te_d):
     """Eq. 2 glue: per job, the max over assigned nodes of the min
     slack ``(free + own demand) - te_demand``, and that node; rows with
     no assignment get ``-inf`` (never eligible)."""
-    sl = (free[None, :, :] + demand[:, None, :]) - te_d
+    sl = (free.unsqueeze(-3) + demand.unsqueeze(-2)) \
+        - te_d[..., None, None, :]
     slack = torch.minimum(torch.minimum(sl[..., 0], sl[..., 1]), sl[..., 2])
     slack = torch.where(assign, slack, -_INF)
-    return slack.amax(1), slack.argmax(1)
+    return slack.amax(-1), slack.argmax(-1)
 
 
 def _argmin_key(mask: torch.Tensor, val: torch.Tensor) -> torch.Tensor:
     """Masked argmin, first minimum on ties (row index is arrival
     order for every monolithic job set; the ``akey`` tie-break of the
     streaming engine is not ported yet)."""
-    return torch.where(mask, val, _INF).argmin()
+    return torch.where(mask, val, _INF).argmin(-1)
 
 
 def _argmax_key(mask: torch.Tensor, val: torch.Tensor) -> torch.Tensor:
     """Masked argmax twin of :func:`_argmin_key`."""
-    return torch.where(mask, val, -_INF).argmax()
+    return torch.where(mask, val, -_INF).argmax(-1)
 
 
 def _release(assign: torch.Tensor, demand: torch.Tensor,
@@ -702,13 +709,17 @@ def _make_step(cfg: SimConfig, jobs: Jobs, n_nodes: int,
             st.free, st.pending_free, cand, st.preempt_count < P, no_jobs,
             zero3, node_cap, s=s).scores
 
+    def uniform(st: State):
+        """The rank policies' draw: one uniform per job."""
+        return lambda: torch.rand(N, generator=st.rng, device=dev)
+
     def trigger_preemption(st: State, te: int) -> None:
         w = int(width_host[te])
         if w == 1:
             if spec.kind == "score":
                 signal_one(st, score_select(st, te), te)
             else:
-                until_fits_select(st, te, spec.rank(st, jobs, st.rng))
+                until_fits_select(st, te, spec.rank(st, jobs, uniform(st)))
             return
         # a gang draws no fallback candidate (RAND's ranks still draw)
         if spec.kind == "score":
@@ -716,7 +727,7 @@ def _make_step(cfg: SimConfig, jobs: Jobs, n_nodes: int,
             picks = _gang_select(st, jobs, te, w, -score, P, score=score)
         else:
             picks = _gang_select(st, jobs, te, w,
-                                 spec.rank(st, jobs, st.rng), P)
+                                 spec.rank(st, jobs, uniform(st)), P)
         for v, over_cap in picks:
             st.fallback_count += int(over_cap)
             signal_one(st, v, te)
@@ -1056,26 +1067,41 @@ def slowdown(jobs: Jobs, st: State) -> torch.Tensor:
     return 1.0 + waiting / jobs.exec_total
 
 
-def masked_percentiles(vals: torch.Tensor, mask: torch.Tensor,
-                       ps) -> dict:
-    """``{f"p{p}": percentile of vals[mask]}``, linear interpolation
-    computed in float32 in the order JAX's ``nanpercentile`` uses (so
-    the two agree to the last bits); an explicit ``nan`` for every
-    entry when the mask is empty."""
-    v = torch.sort(vals[mask].to(F32)).values
-    n = v.numel()
-    if n == 0:
-        return {f"p{p}": float("nan") for p in ps}
+def masked_percentile_rows(vals: torch.Tensor, mask: torch.Tensor,
+                           ps) -> torch.Tensor:
+    """(..., len(ps)) float32: per row of the last axis, the
+    percentiles ``ps`` of ``vals[mask]``, linear interpolation computed
+    in float32 as JAX's compiled ``nanpercentile`` computes it on the
+    CPU (so the two agree to the last bit); ``nan`` in a row whose mask
+    is empty."""
+    v = torch.sort(torch.where(mask, vals.to(F32), _INF), -1).values
+    n = mask.sum(-1, keepdim=True)
     # p * 0.01, not p / 100: the JAX version's compiled ``q / 100``
     # multiplies by the float32 reciprocal (p99 -> 0.98999995)
     q = torch.tensor(list(ps), dtype=F32, device=v.device) * 0.01
-    pos = q * float(n - 1)
+    pos = q * (n - 1).to(F32)
     low, high = torch.floor(pos), torch.ceil(pos)
     high_w = pos - low
     low_w = 1.0 - high_w
-    lo = low.clamp(0, n - 1).long()
-    hi = high.clamp(0, n - 1).long()
-    out = (v[lo] * low_w + v[hi] * high_w).tolist()
+    top = (n - 1).clamp(min=0).to(F32)
+    lo = torch.minimum(low, top).clamp(min=0).long()
+    hi = torch.minimum(high, top).clamp(min=0).long()
+    # XLA contracts ``low * low_w + high * high_w`` into one fused
+    # multiply-add of the high term onto the rounded low term; a
+    # float64 product of two float32 values is exact, so the sum in
+    # float64 rounded once to float32 is that FMA
+    low_term = v.gather(-1, lo) * low_w
+    out = (v.gather(-1, hi).double() * high_w.double()
+           + low_term.double()).to(F32)
+    return torch.where(n > 0, out, float("nan"))
+
+
+def masked_percentiles(vals: torch.Tensor, mask: torch.Tensor,
+                       ps) -> dict:
+    """``{f"p{p}": percentile of vals[mask]}`` for 1-D ``vals`` (host
+    floats, :func:`masked_percentile_rows`); an explicit ``nan`` for
+    every entry when the mask is empty."""
+    out = masked_percentile_rows(vals, mask, ps).tolist()
     return {f"p{p}": x for p, x in zip(ps, out)}
 
 

@@ -35,10 +35,12 @@ _JAX_BLOCK = 128
 
 def normalizers(demand, gp, cand, node_cap):
     """Eq. 3 normalizers over the candidates, clamped like the JAX
-    wrapper (``max(..., 1e-12)``): (max_sz, max_gp), f32 scalars."""
-    sz = _ss.size_eq1(demand.float(), node_cap.float())
-    max_sz = torch.where(cand, sz, 0.0).max().clamp(min=1e-12)
-    max_gp = torch.where(cand, gp.float(), 0.0).max().clamp(min=1e-12)
+    wrapper (``max(..., 1e-12)``): (max_sz, max_gp), f32 scalars; with
+    a leading batch axis (demand (B, J, 3), gp/cand (B, J), node_cap
+    (3,) or (B, 3)) one pair per row, each (B,)."""
+    sz = _ss.size_eq1(demand.float(), node_cap.float().unsqueeze(-2))
+    max_sz = torch.where(cand, sz, 0.0).amax(-1).clamp(min=1e-12)
+    max_gp = torch.where(cand, gp.float(), 0.0).amax(-1).clamp(min=1e-12)
     return max_sz, max_gp
 
 
@@ -53,9 +55,11 @@ def schedule_step(demand, gp, width, queue_key, assign, free,
     ``demand`` (J, 3); ``assign`` (J, M) bool; ``free`` and
     ``pending_free`` (M, 3); ``gp``/``queue_key`` (J,) f32; ``width``
     (J,) i32; ``cand``/``under``/``be_q`` (J,) bool; ``s`` a float or a
-    0-d f32 tensor. ``norms`` is the ``(max_sz, max_gp)`` pair of
-    :func:`normalizers` when the caller already holds it (a ``cand``
-    mask fixed for a run); otherwise it is computed here."""
+    0-d f32 tensor. With a leading batch axis B on every per-job and
+    per-node argument, ``te_demand`` is (3,) or (B, 3), ``s`` (B,) and
+    the normalizers are per row. ``norms`` is the ``(max_sz, max_gp)``
+    pair of :func:`normalizers` when the caller already holds it (a
+    ``cand`` mask fixed for a run); otherwise it is computed here."""
     max_sz, max_gp = normalizers(demand, gp, cand, node_cap) \
         if norms is None else norms
     args = (demand, gp, width, queue_key, assign, free, pending_free, cand,

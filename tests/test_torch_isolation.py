@@ -77,6 +77,17 @@ def test_module_walk_covers_obs_and_reference_engine():
             "repro_torch.core.sim_torch"} <= names
 
 
+def test_module_walk_covers_the_sweep_layer():
+    """The blocked-import walk reaches the batched engine, the sweep
+    fabric and its wrappers, the sweep's device choice and the
+    scenarios CLI."""
+    names = {m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                                   "repro_torch.")}
+    assert {"repro_torch.core.sim_batch", "repro_torch.core.sweep_fabric",
+            "repro_torch.core.sweep", "repro_torch.launch.mesh",
+            "repro_torch.scenarios.__main__"} <= names
+
+
 def test_source_scan_finds_no_jax_or_repro_import():
     offenders = [f"{p.relative_to(ROOT)}: {m.group(0).strip()}"
                  for p in _sources()
@@ -109,6 +120,18 @@ def test_entry_points_raise_without_cuda(monkeypatch):
                       gp=np.zeros(1, np.int64))
     with pytest.raises(RuntimeError, match="device='cpu'"):
         sim_torch.jobs_from_jobset(js)
+    cfg = api.make_config("fitgpp", n_jobs=8, n_nodes=2)
+    table = api.build_table([js, js], 4.0, 1, [0, 1])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        api.run_table(cfg, table)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        api.run_sweep(cfg, table.jobs, 4.0, 1, [0, 1])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        api.scenario_sweep(cfg, ["burst-storm"], [0])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        api.sensitivity_grid(cfg, 8, [4.0], [0])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        api.mesh_for_sweep(2)
     from repro_torch import configs, models
     from repro_torch.launch import serve
     with pytest.raises(RuntimeError, match="device='cpu'"):

@@ -440,3 +440,45 @@ def test_gang_backfill_engine_kernel_path_equals_plain_path(cuda_device,
     monkeypatch.setattr(tops, "_FORCE_PLAIN", True)
     plain = sim_torch.state_to_numpy(sim_torch.run(cfg, jobs, 0))
     assert sim_torch.state_diff_fields(kern, plain) == []
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["event", "tick"])
+def test_batched_engine_kernel_path_equals_plain_path(cuda_device, mode):
+    """A 4-trial burst-storm table (8 nodes, 64 jobs, s in {0, 4}) through
+    the batched engine: the kernel path's State equals the plain path's
+    on the card on every field (draw counts included), and the card's
+    counter-based draws equal the CPU's."""
+    import dataclasses
+
+    from repro_torch import api, scenarios
+    from repro_torch.core import sim_batch, sweep_fabric
+    cfg = api.make_config("fitgpp", n_jobs=64, n_nodes=8, seed=0)
+    jobsets = [scenarios.build("burst-storm", dataclasses.replace(cfg, seed=k))
+               for k in range(2)]
+    table = sweep_fabric.build_table(jobsets * 2, np.float32([0, 0, 4, 4]), 1,
+                                     np.uint32([0, 1, 0, 1]))
+    jobs = dataclasses.replace(table.jobs, **{
+        f.name: getattr(table.jobs, f.name).to(cuda_device)
+        for f in dataclasses.fields(table.jobs)})
+    states = []
+    for force in (False, True):
+        tops._FORCE_PLAIN = force
+        try:
+            before = tops.LAUNCHES["schedule_step"]
+            st = sim_batch.run(cfg, jobs, table.s, table.P, table.seed,
+                               time_mode=mode)
+            launched = tops.LAUNCHES["schedule_step"] - before
+        finally:
+            tops._FORCE_PLAIN = False
+        assert (launched > 0) != force
+        states.append(sim_batch.state_to_numpy(st))
+    for k in states[0]:
+        np.testing.assert_array_equal(states[0][k], states[1][k], err_msg=k)
+    assert (states[0]["n_done"] == states[0]["state"].shape[1]).all()
+    seed = torch.tensor([0, 7, 123456789], dtype=torch.int64)
+    count = torch.tensor([0, 3, 2 ** 33], dtype=torch.int64)
+    torch.testing.assert_close(
+        sim_batch.uniforms(seed.to(cuda_device), count.to(cuda_device),
+                           1000).cpu(),
+        sim_batch.uniforms(seed, count, 1000), rtol=0, atol=0)
