@@ -17,10 +17,13 @@ two main paths through the entry points a user calls:
   through ``repro_torch.api.run_experiment``; then the host numpy
   reference engine (``engine="reference"``) on the paper's cell, the
   same-host baseline, held against the torch engine's results; then
-  the torch engine traced on the same cell (its event ring; fitgpp at
-  2**16 jobs, held against phase paper's untraced run, fifo at 2**15),
-  each stream validated, decomposed per job and held against the
-  reference engine's stream;
+  the torch engine traced on the same cell (its event ring; fifo at
+  2**15 jobs, fitgpp at 2**13), each stream validated, decomposed per
+  job and held against the reference engine's stream; then fitgpp on
+  phase paper's 2**16 jobs through the stream engine
+  (``repro_torch.core.stream.StreamEngine``: a pool of 2,688 job slots,
+  closed-loop admission, traced), held against phase paper's run job
+  for job and against the reference engine's events job for job;
 * the sweep fabric: the batched engine's kernel path against its plain
   path (phase sweep_engine), then Fig. 4 at the paper's scale (fitgpp,
   five values of s, 4 workloads of 2**16 jobs on 84 nodes) as one
@@ -93,9 +96,19 @@ GANG_ENGINE_JOBS = 384
 # host, and with phases sweep_engine and sweep 1370.8 s at 2**15
 GANG_JOBS = 2 ** 14
 # phase trace's runs (and the reference engine's traced runs they are
-# held against): fitgpp at the paper's 2**16, held against phase
-# paper's untraced run; fifo cut to 2**15 for the same limit
-TRACE_JOBS = {"fifo": 2 ** 15, "fitgpp": PAPER_JOBS}
+# held against): fifo cut to 2**15 for the script's limit; fitgpp at
+# 2**13, its traced run at the paper's 2**16 being phase stream's
+TRACE_JOBS = {"fifo": 2 ** 15, "fitgpp": 2 ** 13}
+# phase stream: fitgpp on phase paper's JobSet through the stream engine,
+# its pool stream.default_capacity at 84 nodes and P = 1 (32 slots a
+# node), doubled if it spills
+STREAM_JOBS = PAPER_JOBS
+STREAM_POOL = 32 * PAPER_NODES
+# phase kernel's akey tie-break cases (tie-heavy passes with a permuted
+# akey): the stream pool's pass, phase paper's and a batched one; timed
+# at the pool's with and without akey
+KERNEL_AKEY_SHAPES = [(1, STREAM_POOL, PAPER_NODES),
+                      (1, PAPER_JOBS, PAPER_NODES), (4, 1000, PAPER_NODES)]
 # phase gang's pass shape, held bit-equal in phase kernel twice: as a
 # queue pass, and built like fitgpp's gang-score pass
 KERNEL_GANG_SHAPE = (1, GANG_JOBS, PAPER_NODES)
@@ -173,11 +186,14 @@ class SmokeFailure(Exception):
 class EngineRuns:
     """What the engine phases of one call share: phase paper's untraced
     results (policy -> {"state": numpy State, "seconds", "launches",
-    "fallback_count"}), phase reference's traced streams (policy ->
-    (events, fallback_count)) and the paper cell's JobSets."""
+    "fallback_count"}) and its peak device memory, phase reference's
+    traced streams ((policy, n_jobs) -> (events, fallback_count)) and
+    the paper cell's JobSets."""
 
     def __init__(self):
         self.paper = {}
+        self.paper_peak_gb = None
+        self.paper_wall_s = None
         self.reference_traces = {}
         self._jobsets = {}
 
@@ -195,7 +211,14 @@ class EngineRuns:
         return self._jobsets[n_jobs]
 
 
+# the script's start on the host clock; each phase line carries the
+# seconds since then (``elapsed_s``), so a run shows what each phase cost
+_START = time.perf_counter()
+
+
 def emit(obj) -> None:
+    if "phase" in obj:
+        obj = {**obj, "elapsed_s": time.perf_counter() - _START}
     print(json.dumps(obj), flush=True)
 
 
@@ -240,6 +263,22 @@ def rand_instance(np, J, M, seed):
         node_cap=np.array([32.0, 256.0, 8.0], f32))
 
 
+def tie_instance(np, J, M, seed):
+    """A tie-heavy pass like the stream engine's pool passes: two demand
+    rows and two grace periods (the Eq. 3 scores take four values),
+    free capacity that keeps most candidates Eq. 2 eligible, live cand
+    and under masks, and ``akey`` a seeded permutation."""
+    inst = rand_instance(np, J, M, seed)
+    rng = np.random.default_rng(seed + 500)
+    rows = np.array([[4.0, 16.0, 1.0], [8.0, 32.0, 2.0]], np.float32)
+    inst.update(demand=rows[rng.integers(0, 2, J)],
+                gp=rng.choice(np.array([0.0, 4.0], np.float32), J),
+                free=np.tile(np.array([[8.0, 64.0, 4.0]], np.float32),
+                             (M, 1)))
+    inst["akey"] = rng.permutation(J).astype(np.float32)
+    return inst
+
+
 def gang_score_instance(np, J, M, seed):
     """Arguments like fitgpp's gang-score pass (``sim_torch``'s
     ``gang_score``): jobs of width 1, 2, 4 or 8 on as many consecutive
@@ -262,11 +301,17 @@ def gang_score_instance(np, J, M, seed):
 def batched_args(torch, np, B, J, M, seed, kind="rand"):
     """Stacked (B, ...) kernel arguments on the card, normalizers and
     s included. ``kind``: "rand" (:func:`rand_instance`), "empty" (its
-    cand, under and be_q all False) or "gang_score"
-    (:func:`gang_score_instance`)."""
+    cand, under and be_q all False), "gang_score"
+    (:func:`gang_score_instance`) or "ties" (:func:`tie_instance`,
+    whose ``akey`` comes last)."""
     from repro_torch.kernels import ops
-    make = gang_score_instance if kind == "gang_score" else rand_instance
+    make = {"gang_score": gang_score_instance,
+            "ties": tie_instance}.get(kind, rand_instance)
     insts = [make(np, J, M, seed + b) for b in range(B)]
+    akey = None
+    if kind == "ties":
+        akey = torch.stack([torch.as_tensor(i.pop("akey"))
+                            for i in insts]).cuda()
     if kind == "empty":
         for inst in insts:
             for k in ("cand", "under", "be_q"):
@@ -277,14 +322,17 @@ def batched_args(torch, np, B, J, M, seed, kind="rand"):
                              args[11][b]) for b in range(B)]
     return args + [torch.stack([n[0] for n in norms]),
                    torch.stack([n[1] for n in norms]),
-                   torch.full((B,), 4.0, device="cuda")]
+                   torch.full((B,), 4.0, device="cuda")] \
+        + ([] if akey is None else [akey])
 
 
-def bound_ms(B, J, M, n_assigned):
+def bound_ms(B, J, M, n_assigned, akey=False):
     """Least time for one pass at this shape: bytes (each input read
-    once, each output written once) over HBM bandwidth against float32
-    operations over the float32 rate; returns (ms, bound_by)."""
-    inputs = B * (J * (12 + 4 + 4 + 4 + M + 3) + M * 24 + 24 + 12)
+    once, each output written once; ``akey`` adds its 4 bytes a job)
+    over HBM bandwidth against float32 operations over the float32
+    rate; returns (ms, bound_by)."""
+    inputs = B * (J * (12 + 4 + 4 + 4 + M + 3 + 4 * akey) + M * 24 + 24
+                  + 12)
     outputs = B * (J * (4 + 4 * M + 8) + 16)
     # per (job, node): 6 fit compares; per assigned entry: Eq. 2 slack
     # (3 adds, 3 subtracts, 2 min, 1 max); per job: Eq. 1/3 (12), the
@@ -384,14 +432,69 @@ def phase_build():
           "ptxas": ptxas})
 
 
+def check_pass_equal(torch, ss, args, where):
+    """One kernel call against the plain version, all 8 fields
+    bit-equal, counted as one launch; returns (kernel pass, max abs
+    difference)."""
+    before = ss.build.LAUNCHES["schedule_step"]
+    k = ss.schedule_step_cuda(*args)
+    check(ss.build.LAUNCHES["schedule_step"] == before + 1,
+          "schedule_step_cuda did not count one launch")
+    p = ss.schedule_step_torch(*args)
+    torch.cuda.synchronize()
+    max_err = 0.0
+    for name, x, y in zip(ss.SchedulePass._fields, k, p):
+        check(x.dtype == y.dtype and x.shape == y.shape,
+              f"schedule_step {name}: {x.dtype}{tuple(x.shape)} vs "
+              f"{y.dtype}{tuple(y.shape)} {where}")
+        err = float((x.double() - y.double()).abs().max())
+        max_err = max(max_err, err)
+        check(torch.equal(x, y), f"schedule_step {name} differs from "
+              f"the plain version {where} (max {err})")
+    return k, max_err
+
+
+def kernel_akey(torch, np, ss):
+    """The victim's akey tie-break at KERNEL_AKEY_SHAPES on tie-heavy
+    passes: kernel == plain version with akey and without it (today's
+    path), the tie-break changing victims; then the pass at the stream
+    pool's shape timed with and without akey, with its bound."""
+    max_err = 0.0
+    changed = 0
+    for seed, (B, J, M) in enumerate(KERNEL_AKEY_SHAPES, 200):
+        args = batched_args(torch, np, B, J, M, seed, "ties")
+        where = f"with akey at B={B} J={J} M={M}"
+        k, err = check_pass_equal(torch, ss, args, where)
+        k0, err0 = check_pass_equal(torch, ss, args[:-1],
+                                    where.replace("with", "without"))
+        max_err = max(max_err, err, err0)
+        changed += int((k.victim != k0.victim).sum())
+        del args, k, k0
+        free_cuda(torch)
+    check(changed > 0, "the akey tie-break changed no victim")
+    B, J, M = KERNEL_AKEY_SHAPES[0]
+    args = batched_args(torch, np, B, J, M, 299, "ties")
+    bound, bound_by = bound_ms(B, J, M, int(args[4].sum()), akey=True)
+    out = {"shape": {"B": B, "J": J, "M": M},
+           "cases": len(KERNEL_AKEY_SHAPES), "victims_changed": changed,
+           "ms": time_kernel_ms(torch, ss, args),
+           "ms_without_akey": time_kernel_ms(torch, ss, args[:-1]),
+           "plain_ms": time_ms(torch, lambda: ss.schedule_step_torch(*args)),
+           "bound_ms": bound, "bound_by": bound_by,
+           "bound_ms_without_akey": bound_ms(B, J, M,
+                                             int(args[4].sum()))[0]}
+    return out, max_err
+
+
 def phase_kernel(torch, np, shapes=KERNEL_SHAPES):
     """Kernel against plain version, all 8 fields bit-equal, at
     KERNEL_SHAPES, an empty-mask case, KERNEL_WIDE_SHAPE,
     KERNEL_NODES_SHAPES, KERNEL_MANY_NODES_TIMED, KERNEL_GANG_SHAPE
-    (a random pass and a gang-score pass) and KERNEL_SWEEP_SHAPES (also
-    timed, with their bounds); each call counted as one
-    launch, and the device kernels of one call at the timed shape
-    counted by the profiler."""
+    (a random pass and a gang-score pass), KERNEL_SWEEP_SHAPES (also
+    timed, with their bounds) and the akey tie-break
+    (:func:`kernel_akey`); each call counted as one launch, and the
+    device kernels of one call at the timed shape counted by the
+    profiler."""
     from repro_torch.kernels import schedule_step as ss
     cases = [(b, j, m, "rand") for b, j, m in shapes] \
         + [(1, 1000, 84, "empty"), (*KERNEL_WIDE_SHAPE, "rand")] \
@@ -402,22 +505,12 @@ def phase_kernel(torch, np, shapes=KERNEL_SHAPES):
     max_err = 0.0
     for seed, (B, J, M, kind) in enumerate(cases):
         args = batched_args(torch, np, B, J, M, seed, kind)
-        before = ss.build.LAUNCHES["schedule_step"]
-        k = ss.schedule_step_cuda(*args)
-        check(ss.build.LAUNCHES["schedule_step"] == before + 1,
-              "schedule_step_cuda did not count one launch")
-        p = ss.schedule_step_torch(*args)
-        torch.cuda.synchronize()
-        for name, x, y in zip(ss.SchedulePass._fields, k, p):
-            check(x.dtype == y.dtype and x.shape == y.shape,
-                  f"schedule_step {name}: {x.dtype}{tuple(x.shape)} vs "
-                  f"{y.dtype}{tuple(y.shape)} at B={B} J={J} M={M}")
-            err = float((x.double() - y.double()).abs().max())
-            max_err = max(max_err, err)
-            check(torch.equal(x, y), f"schedule_step {name} differs from "
-                  f"the plain version at B={B} J={J} M={M} (max {err})")
-        del args, k, p
+        _, err = check_pass_equal(torch, ss, args, f"at B={B} J={J} M={M}")
+        max_err = max(max_err, err)
+        del args
         free_cuda(torch)
+    akey, err = kernel_akey(torch, np, ss)
+    max_err = max(max_err, err)
     B, J, M = 1, PAPER_JOBS, PAPER_NODES
     args = batched_args(torch, np, B, J, M, 99)
     ms = time_kernel_ms(torch, ss, args)
@@ -463,7 +556,7 @@ def phase_kernel(torch, np, shapes=KERNEL_SHAPES):
               "kernels_of_one_pass": per_pass,
               "wrapper_idle_ms": wrapper_ms, "plain_idle_ms": plain_idle_ms,
               "many_nodes": many_nodes, "sweep_pass": sweep_pass,
-              "timed_shape": {"B": B, "J": J, "M": M}}
+              "akey": akey, "timed_shape": {"B": B, "J": J, "M": M}}
     emit({"phase": "kernel", "cases": len(cases), "all_equal": True,
           "gang_cases": {"shape": dict(zip("BJM", KERNEL_GANG_SHAPE)),
                          "kinds": ["rand", "gang_score"]},
@@ -582,12 +675,14 @@ def phase_paper(torch, np, runs, n_jobs=PAPER_JOBS):
     for name in ops.LAUNCHES:
         ops.LAUNCHES[name] = 0
     ops.KERNEL_EVENTS = []
+    torch.cuda.reset_peak_memory_stats()
     try:
         t0 = time.perf_counter()
         rs = api.compare_policies(["fifo", "fitgpp"], n_jobs=n_jobs,
                                   n_nodes=PAPER_NODES, seed=0)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        runs.paper_peak_gb = torch.cuda.max_memory_allocated() / 1e9
         launches = ops.LAUNCHES["schedule_step"]
         kernel_ms = [s.elapsed_time(e) for s, e in ops.KERNEL_EVENTS]
     finally:
@@ -617,8 +712,10 @@ def phase_paper(torch, np, runs, n_jobs=PAPER_JOBS):
         k0 = k1
     fifo, fit = rs["fifo"].table, rs["fitgpp"].table
     te_cut = 1.0 - fit["TE"]["p95"] / fifo["TE"]["p95"]
+    runs.paper_wall_s = wall
     emit({"phase": "paper_scale", "n_jobs": n_jobs, "n_nodes": PAPER_NODES,
           "wall_s": wall, "launches": launches,
+          "peak_device_gb": runs.paper_peak_gb,
           "kernel_ms_total": sum(kernel_ms),
           "kernel_events_in_wall": True,
           "te_p95_cut": te_cut,
@@ -730,14 +827,16 @@ def reference_run(runs, policy, n_jobs, trace):
     return res, sim.policy.fallback_count, time.perf_counter() - t0
 
 
-def phase_reference(np, runs, n_jobs=PAPER_JOBS):
+def phase_reference(np, runs, n_jobs=PAPER_JOBS, stream=False):
     """The same-host baseline: the port's numpy reference engine (host
     only, never the card) on the paper's cell under fifo and fitgpp,
     untraced; its results held against phase paper's torch runs (finish
     ticks, preemption counts and the slowdown table, bit for bit, where
     neither run drew a random fallback). Then the traced fifo and
     fitgpp runs at their TRACE_JOBS sizes that phase trace compares
-    streams with (fitgpp's where neither engine fell back)."""
+    streams with (fitgpp's where neither engine fell back), and with
+    ``stream`` the traced fitgpp run at STREAM_JOBS that phase stream
+    compares per-job events with."""
     from repro_torch.core import metrics
     from repro_torch.core.types import SimResult
     _, js, build_s = runs.jobset(n_jobs)
@@ -782,36 +881,54 @@ def phase_reference(np, runs, n_jobs=PAPER_JOBS):
     fifo, fit = out["fifo"]["TE"], out["fitgpp"]["TE"]
     # the traced runs phase trace compares streams with
     traced = {}
-    for policy in ("fifo", "fitgpp"):
-        res, fallback, wall = reference_run(runs, policy,
-                                            TRACE_JOBS[policy], trace=True)
-        runs.reference_traces[policy] = (res.trace, fallback)
-        traced[policy] = {"n_jobs": TRACE_JOBS[policy], "wall_s": wall,
-                          "events": len(res.trace)}
+    todo = [(p, TRACE_JOBS[p]) for p in ("fifo", "fitgpp")] \
+        + ([("fitgpp", STREAM_JOBS)] if stream else [])
+    for policy, n in todo:
+        res, fallback, wall = reference_run(runs, policy, n, trace=True)
+        runs.reference_traces[policy, n] = (res.trace, fallback)
+        traced[f"{policy}_{n}"] = {"n_jobs": n, "wall_s": wall,
+                                   "events": len(res.trace),
+                                   "fallback_count": fallback}
     emit({"phase": "reference", "scenario": "paper-synthetic",
           "n_jobs": n_jobs, "n_nodes": PAPER_NODES, "build_s": build_s,
           "te_p95_cut": 1.0 - fit["p95"] / fifo["p95"],
           "runs": out, "traced": traced})
 
 
+def check_decomposition(events, finish, exec_total, n_jobs, where):
+    """The slowdown decomposition's identity for every job, its finish
+    the run's and its service the execution time; returns the
+    decomposition."""
+    from repro_torch.obs import timeseries
+    dec = timeseries.slowdown_decomposition(events)
+    check(sorted(dec) == list(range(n_jobs)), f"{where}: the "
+          "decomposition misses jobs")
+    bad = [j for j, d in dec.items()
+           if not d.identity_holds() or d.finish != finish[j]
+           or d.service != int(exec_total[j])]
+    check(not bad, f"{where}: the decomposition fails for {len(bad)} "
+          f"jobs, first {bad[:1]}")
+    return dec
+
+
 def phase_trace(torch, np, runs):
-    """The torch engine traced on the paper's cell under fifo and
-    fitgpp (event mode, the default ring capacity), through
+    """The torch engine traced on the paper's cell under fifo (2**15
+    jobs) and fitgpp (2**13, TRACE_JOBS; its traced run at 2**16 is
+    phase stream's), event mode, the default ring capacity, through
     ``api.run_experiment(trace=True)``: no overflow, a valid stream,
     the slowdown decomposition's identity for every job (service equal
     to the execution time, finish to the State's), the stream equal to
-    the reference engine's (fifo; fitgpp where neither fell back) and,
-    for fitgpp (run at the paper's 2**16 jobs; fifo at 2**15,
-    TRACE_JOBS) where phase paper ran, every other State field and the
-    launches equal to its untraced run. The fitgpp stream is written as
-    CSV and Perfetto JSON and the CSV read back."""
+    the reference engine's event for event (fifo; fitgpp where neither
+    fell back) and, for a run at phase paper's size where phase paper
+    ran, every other State field and the launches equal to its untraced
+    run."""
     from repro_torch import api
     from repro_torch.core import metrics, sim_torch
     from repro_torch.kernels import ops
-    from repro_torch.obs import export, schema, timeseries
+    from repro_torch.obs import schema
     zero_launches()
     t0 = time.perf_counter()
-    out, streams = {}, {}
+    out = {}
     for policy in ("fifo", "fitgpp"):
         cfg, js, _ = runs.jobset(TRACE_JOBS[policy])
         t1 = time.perf_counter()
@@ -828,15 +945,8 @@ def phase_trace(torch, np, runs):
         schema.validate_events(events, n_jobs=js.n, n_nodes=PAPER_NODES)
         validate_s = time.perf_counter() - t1
         t1 = time.perf_counter()
-        dec = timeseries.slowdown_decomposition(events)
-        finish = st.finish.cpu().numpy()
-        check(sorted(dec) == list(range(js.n)), f"trace {policy}: the "
-              "decomposition misses jobs")
-        bad = [j for j, d in dec.items()
-               if not d.identity_holds() or d.finish != finish[j]
-               or d.service != int(js.exec_total[j])]
-        check(not bad, f"trace {policy}: the decomposition fails for "
-              f"{len(bad)} jobs, first {bad[:1]}")
+        dec = check_decomposition(events, st.finish.cpu().numpy(),
+                                  js.exec_total, js.n, f"trace {policy}")
         decomp_s = time.perf_counter() - t1
         run = {"n_jobs": js.n, "traced_wall_s": r.raw.seconds,
                "run_experiment_s": run_s, "ev_n": st.ev_n,
@@ -860,7 +970,7 @@ def phase_trace(torch, np, runs):
             run["untraced_wall_s"] = paper["seconds"]
             run["traced_over_untraced"] = r.raw.seconds / paper["seconds"]
             run["equal_to_untraced"] = True
-        ref = runs.reference_traces.get(policy)
+        ref = runs.reference_traces.get((policy, js.n))
         if ref is None and policy == "fifo":
             res, fallback, _ = reference_run(runs, "fifo",
                                              TRACE_JOBS["fifo"], trace=True)
@@ -874,31 +984,135 @@ def phase_trace(torch, np, runs):
         check(policy != "fifo" or run["equal_to_reference_stream"],
               "trace fifo: not compared with the reference stream")
         out[policy] = run
-        streams[policy] = (events, js)
     wall = time.perf_counter() - t0
     launches = ops.LAUNCHES["schedule_step"]
     check(launches == sum(r["launches"] for r in out.values()) > 0,
           "trace launches do not add up")
-    events, js = streams["fitgpp"]
+    emit({"phase": "trace", "scenario": "paper-synthetic",
+          "n_nodes": PAPER_NODES, "wall_s": wall, "launches": launches,
+          "runs": out})
+    return launches
+
+
+def export_round_trip(events, is_te, where):
+    """Write ``events`` as CSV and Perfetto JSON to a temporary
+    directory and read the CSV back; returns seconds and sizes."""
+    from repro_torch.obs import export
     with tempfile.TemporaryDirectory() as tmp:
-        csv_path = os.path.join(tmp, "fitgpp.csv")
-        json_path = os.path.join(tmp, "fitgpp.perfetto.json")
+        csv_path = os.path.join(tmp, "events.csv")
+        json_path = os.path.join(tmp, "events.perfetto.json")
         t1 = time.perf_counter()
         export.write_trace(csv_path, events, fmt="csv")
         export.write_trace(json_path, events, fmt="perfetto",
-                           n_nodes=PAPER_NODES, is_te=js.is_te)
+                           n_nodes=PAPER_NODES, is_te=is_te)
         export_s = time.perf_counter() - t1
         with open(csv_path) as f:
             check(export.read_csv(f.read()) == events,
-                  "trace: the CSV does not read back equal")
+                  f"{where}: the CSV does not read back equal")
         with open(json_path) as f:
-            check(bool(json.load(f)["traceEvents"]), "trace: empty "
+            check(bool(json.load(f)["traceEvents"]), f"{where}: empty "
                   "Perfetto export")
-        sizes = {"csv_mb": os.path.getsize(csv_path) / 1e6,
-                 "perfetto_mb": os.path.getsize(json_path) / 1e6}
-    emit({"phase": "trace", "scenario": "paper-synthetic",
-          "n_nodes": PAPER_NODES, "wall_s": wall, "launches": launches,
-          "export_s": export_s, **sizes, "runs": out})
+        return {"export_s": export_s,
+                "csv_mb": os.path.getsize(csv_path) / 1e6,
+                "perfetto_mb": os.path.getsize(json_path) / 1e6}
+
+
+def events_by_job(events):
+    """job -> its events in stream order, each (t, code, aux, nodes)."""
+    out = {}
+    for e in events:
+        out.setdefault(e.job, []).append((e.t, e.code, e.aux,
+                                          tuple(e.nodes)))
+    return out
+
+
+def phase_stream(torch, np, runs, n_jobs=STREAM_JOBS):
+    """The stream engine on the main path: fitgpp on phase paper's
+    JobSet (paper-synthetic, 84 nodes, 2**16 jobs, seed 0, event mode)
+    through ``StreamEngine(cfg, from_jobset(js), admission=True,
+    trace=True)`` with a pool of STREAM_POOL slots
+    (``stream.default_capacity``), doubled while a run spills. Checks:
+    the streamed admit times equal the JobSet's submit times; no spill,
+    no ring overflow; finish, preemption counts, last signal, vacate
+    and resume ticks and the makespan equal phase paper's fitgpp State
+    where neither run drew a random fallback; the remapped events are
+    valid, decompose for every job and survive the CSV and Perfetto
+    export; each job's events, in order, equal the reference engine's
+    traced run (phase reference) where neither fell back."""
+    from repro_torch import api
+    from repro_torch.core import stream
+    from repro_torch.kernels import ops
+    from repro_torch.obs import schema
+    base, js, _ = runs.jobset(n_jobs)
+    cfg = api.make_config("fitgpp", base=base)
+    capacity = stream.default_capacity(cfg)
+    check(capacity == STREAM_POOL, f"default capacity {capacity}, not "
+          f"{STREAM_POOL}")
+    tried = []
+    while True:
+        zero_launches()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = stream.StreamEngine(cfg, stream.from_jobset(js),
+                                  capacity=capacity, time_mode="event",
+                                  trace=True, admission=True).run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = ops.LAUNCHES["schedule_step"]
+        tried.append({"capacity": capacity, "n_spilled": res.n_spilled,
+                      "wall_s": wall})
+        if res.n_spilled == 0 or len(tried) == 4:
+            break
+        capacity *= 2
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(res.n_spilled == 0, f"stream: {res.n_spilled} jobs spilled at "
+          f"every capacity tried {tried}")
+    check(launches > 0, "the stream engine launched no schedule_step "
+          "kernel")
+    check(res.n_jobs == js.n and res.trace_overflow == 0,
+          f"stream: {res.n_jobs} of {js.n} jobs, {res.trace_overflow} "
+          "ring rows dropped")
+    check(np.array_equal(res.submit, js.submit), "stream: the closed-loop "
+          "admit times differ from the JobSet's submit times")
+    run = {"n_jobs": res.n_jobs, "capacity": capacity, "tried": tried,
+           "rounds": res.rounds, "max_live": res.max_live,
+           "wall_s": wall, "launches": launches,
+           "iterations": res.iterations, "acting_ticks": res.acting_ticks,
+           "peak_device_gb": peak_gb, "paper_peak_device_gb":
+           runs.paper_peak_gb, "fallback_count": res.fallback_count,
+           "makespan": res.makespan, "events": len(res.events),
+           "TE": res.summary()["TE"], "BE": res.summary()["BE"]}
+    paper = runs.paper.get("fitgpp")
+    run["equal_to_paper"] = None
+    if paper is not None:
+        run["paper_wall_s"] = paper["seconds"]
+        run["paper_launches"] = paper["launches"]
+        if res.fallback_count == paper["fallback_count"] == 0:
+            st = paper["state"]
+            diff = [k for k in ("finish", "preempt_count", "last_signal",
+                                "last_vacate", "last_resume")
+                    if not np.array_equal(st[k], getattr(res, k))]
+            check(not diff, f"stream: {diff} differ from phase paper's "
+                  "fitgpp State")
+            check(res.makespan == int(st["t"]), f"stream: makespan "
+                  f"{res.makespan}, phase paper's {int(st['t'])}")
+            run["equal_to_paper"] = True
+    t1 = time.perf_counter()
+    schema.validate_events(res.events, n_jobs=js.n, n_nodes=PAPER_NODES)
+    check_decomposition(res.events, res.finish, js.exec_total, js.n,
+                        "stream")
+    run["validate_s"] = time.perf_counter() - t1
+    run.update(export_round_trip(res.events, js.is_te, "stream"))
+    ref = runs.reference_traces.get(("fitgpp", n_jobs))
+    run["equal_to_reference_per_job"] = None
+    if ref is not None and ref[1] == res.fallback_count == 0:
+        want, got = events_by_job(ref[0]), events_by_job(res.events)
+        bad = [j for j in range(js.n) if want.get(j) != got.get(j)]
+        check(not bad, f"stream: {len(bad)} jobs' events differ from the "
+              f"reference engine's, first {bad[:1]}")
+        run["equal_to_reference_per_job"] = True
+    emit({"phase": "stream", "scenario": "paper-synthetic",
+          "policy": "fitgpp", "n_nodes": PAPER_NODES, **run})
     return launches
 
 
@@ -926,9 +1140,7 @@ def batched_kernel_vs_plain(torch, np, cfg, table, mode, what):
     path's State (numpy), its stats and the two wall times."""
     from repro_torch.core import sim_batch
     from repro_torch.kernels import ops
-    jobs = dataclasses.replace(table.jobs, **{
-        f.name: getattr(table.jobs, f.name).cuda()
-        for f in dataclasses.fields(table.jobs)})
+    jobs = table.jobs.map(lambda x: x.cuda())
     out = {}
     for path, force in (("kernel", False), ("plain", True)):
         ops._FORCE_PLAIN = force
@@ -2298,8 +2510,8 @@ def phase_serve_family_card_vs_cpu(torch, arch, prompt_len=80):
 
 PHASES = ("build", "kernel", "flash_kernel", "ssd_kernel", "lru_kernel",
           "engine", "sweep_engine", "paper", "gang", "reference", "trace",
-          "sweep", "serve", "serve_f32", "serve_card_vs_cpu", "serve_ssm",
-          "serve_hybrid")
+          "stream", "sweep", "serve", "serve_f32", "serve_card_vs_cpu",
+          "serve_ssm", "serve_hybrid")
 # run only when named in --phases
 EXTRA_PHASES = ("sweep_b1",)
 
@@ -2349,10 +2561,13 @@ def main(argv=None) -> int:
             launches.setdefault("schedule_step", {})["gang"] = \
                 phase_gang(torch, np)
         if "reference" in phases:
-            phase_reference(np, runs)
+            phase_reference(np, runs, stream="stream" in phases)
         if "trace" in phases:
             launches.setdefault("schedule_step", {})["trace"] = \
                 phase_trace(torch, np, runs)
+        if "stream" in phases:
+            launches.setdefault("schedule_step", {})["stream"] = \
+                phase_stream(torch, np, runs)
         if "sweep" in phases:
             launches.setdefault("schedule_step", {})["sweep"] = \
                 phase_sweep(torch, np)
@@ -2380,9 +2595,12 @@ def main(argv=None) -> int:
         by_path = launches.get(k["name"])
         k["launches"] = sum(by_path.values()) if by_path else None
         k["launches_by_path"] = by_path
+    total = time.perf_counter() - t0
+    emit({"phase": "total", "seconds": total,
+          "paper_wall_s": runs.paper_wall_s})
     emit({"kernels": kernels})
     print(smi)
-    print(f"chip_smoke: {time.perf_counter() - t0:.1f} s", file=sys.stderr)
+    print(f"chip_smoke: {total:.1f} s", file=sys.stderr)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -21,6 +21,11 @@ same fields as the JAX package's:
 ``obs.export.write_trace`` (Perfetto JSON or CSV) or replay it with
 ``obs.timeseries``.
 
+:func:`run_stream` replays a scenario through the stream engine
+(``core/stream``) on ``device``: a pool of ``capacity`` job slots, so
+device memory scales with the pool and not with the trace, with the
+monolithic engine's results (``engine="stream"`` on the result).
+
 Batched studies go through the same module: :func:`sensitivity_grid`,
 :func:`scenario_sweep` and :func:`run_sweep` (``core/sweep.py``) and
 :func:`run_table` / :func:`build_table` / :func:`pooled_tables`, the
@@ -59,7 +64,8 @@ __all__ = [
     "DEFAULT_SCENARIO", "ENGINES", "ExperimentResult", "RunOutput",
     "SweepResult", "TrialTable", "build_table", "compare_policies",
     "get_policy", "make_config", "mesh_for_sweep", "policy_names",
-    "pooled_tables", "run_experiment", "run_sweep", "run_table",
+    "pooled_tables", "run_experiment", "run_stream", "run_sweep",
+    "run_table",
     "scenario_names", "scenario_sweep", "sensitivity_grid",
 ]
 
@@ -84,7 +90,9 @@ class ExperimentResult:
     :class:`RunOutput` (torch engine) or the ``SimResult`` (reference
     engine). ``events`` is the event stream of a traced run (else
     None); ``trace_overflow`` the rows a torch run's ring dropped (0: a
-    complete trace; the reference never drops); ``fallback_count`` the
+    complete trace; the reference never drops); ``engine`` is "stream"
+    and ``raw`` a ``StreamResult`` for :func:`run_stream`;
+    ``fallback_count`` the
     torch engine's random-fallback and over-cap selections, or the
     reference engine's random fallbacks of a score rule."""
     scenario: str
@@ -227,6 +235,60 @@ def run_experiment(scenario: str = DEFAULT_SCENARIO,
     if engine == "reference":
         return _run_reference(scenario, cfg, js, mode, trace)
     return _run_torch(scenario, cfg, js, mode, trace, trace_capacity, dev)
+
+
+def run_stream(scenario: str = DEFAULT_SCENARIO,
+               policy: Optional[str] = None, *,
+               cfg: Optional[SimConfig] = None,
+               source=None,
+               capacity: Optional[int] = None,
+               n_jobs: Optional[int] = None,
+               n_nodes: Optional[int] = None,
+               seed: Optional[int] = None,
+               mode: Optional[str] = None,
+               trace: bool = False,
+               trace_capacity: Optional[int] = None,
+               admission=None,
+               device=None) -> ExperimentResult:
+    """Replay a scenario through the stream engine (``core/stream``):
+    bounded memory, any trace length, the results of
+    ``engine="torch"`` on the same workload.
+
+    Runs on ``device`` as :func:`run_experiment`'s torch engine does
+    (the current CUDA device unless ``device`` is given, e.g. "cpu").
+    The workload comes from the scenario's registered streaming
+    ``source`` (trace readers, chunked generators; other scenarios
+    stream a chunked view of the built JobSet), or from an explicit
+    ``source`` (a ``core.stream.JobSource``). ``capacity`` bounds the
+    jobs in flight (default ``stream.default_capacity(cfg)``).
+    ``admission`` turns on closed-loop arrivals (paper §4.2): the
+    source's submit times become admit ticks holding the
+    FIFO-normalized backlog at ``cfg.workload.load``
+    (``admission=True``) or at an explicit float target. ``.raw`` is
+    the :class:`repro_torch.core.stream.StreamResult` (per-job arrays,
+    rounds, peak live jobs, spill counters); ``.events`` the stream
+    remapped to global job ids when traced."""
+    from repro_torch.core import stream
+    if mode not in (None, "event", "tick"):
+        raise ValueError(f"unknown mode {mode!r}; one of ('event', 'tick')")
+    dev = _device.resolve(device)
+    cfg = make_config(policy, base=cfg, n_jobs=n_jobs, n_nodes=n_nodes,
+                      seed=seed)
+    mode = cfg.time_mode if mode is None else mode
+    if source is None:
+        source = scenarios.get_source(scenario, cfg)
+    res = stream.StreamEngine(cfg, source, capacity=capacity,
+                              time_mode=mode, trace=trace,
+                              trace_capacity=trace_capacity,
+                              admission=admission, device=dev).run()
+    summary = res.summary()
+    return ExperimentResult(
+        scenario=scenario, policy=cfg.policy, engine="stream", cfg=cfg,
+        table={k: summary[k] for k in ("TE", "BE")},
+        intervals=summary["intervals"],
+        preempted_frac=summary["preempted_frac"], makespan=res.makespan,
+        raw=res, events=res.events, trace_overflow=res.trace_overflow,
+        fallback_count=res.fallback_count)
 
 
 def compare_policies(policies, scenario: str = DEFAULT_SCENARIO,

@@ -81,10 +81,22 @@ class Jobs:
     gp: torch.Tensor          # (N,) i32
     width: torch.Tensor       # (N,) i32 gang width (>= 1)
     valid: torch.Tensor       # (N,) bool
+    # (N,) f32 global arrival order, or None: row index is arrival order
+    # (every monolithic job set). The stream engine recycles slots and
+    # stamps each job's sequence number here; arrival keys, requeue
+    # ranks and victim tie-breaks then key on it. Exact below 2^24.
+    akey: Optional[torch.Tensor] = None
 
     @property
     def device(self) -> torch.device:
         return self.submit.device
+
+    def map(self, fn) -> "Jobs":
+        """Jobs with ``fn`` applied to every tensor field (a None
+        ``akey`` stays None)."""
+        return Jobs(**{f.name: None if getattr(self, f.name) is None
+                       else fn(getattr(self, f.name))
+                       for f in fields(self)})
 
 
 @dataclass
@@ -142,12 +154,15 @@ def _tensor(x, dtype, dev) -> torch.Tensor:
 
 def jobs_from_numpy(arrays: dict, device=None) -> Jobs:
     """Jobs from numpy arrays named as the JAX ``Jobs`` fields
-    (``valid`` optional, default all True)."""
+    (``valid`` optional, default all True; ``akey`` optional, default
+    None)."""
     dev = _device.resolve(device)
     arrays = dict(arrays)
     arrays.setdefault("valid", np.ones(len(arrays["submit"]), bool))
+    akey = arrays.get("akey")
     return Jobs(**{f: _tensor(arrays[f], dt, dev)
-                   for f, dt in _JOB_DTYPES.items()})
+                   for f, dt in _JOB_DTYPES.items()},
+                akey=None if akey is None else _tensor(akey, F32, dev))
 
 
 def jobs_from_jobset(js: JobSet, device=None) -> Jobs:
@@ -274,12 +289,18 @@ def _next_vacate(st: State) -> tuple:
     return in_grace.any(), torch.where(in_grace, st.grace_left, _BIG).min()
 
 
-def _cache_from_state(jobs: Jobs, st: State) -> _Cache:
+def _cache_from_state(jobs: Jobs, st: State,
+                      ext_arrival: Optional[int] = None) -> _Cache:
+    """``ext_arrival``: the submit tick of the next job outside ``jobs``
+    (a streamed round's boundary, or None), folded into
+    ``next_arrival`` so no event jump passes it."""
     queued = st.state == QUEUED
     nxt = torch.where(st.state == NOT_ARRIVED, jobs.submit, _BIG).min()
     any_g, g = _next_vacate(st)
     nxt, any_g, g, n_q_te, n_queued = _ints(
         nxt, any_g, g, (queued & jobs.is_te).sum(), queued.sum())
+    if ext_arrival is not None:
+        nxt = min(nxt, int(ext_arrival))
     return _Cache(next_arrival=nxt,
                   next_vacate=st.t + g if any_g else _BIG,
                   n_q_te=n_q_te, n_queued=n_queued)
@@ -346,16 +367,25 @@ def _best_victim_node(free, assign, demand, te_d):
     return slack.amax(-1), slack.argmax(-1)
 
 
-def _argmin_key(mask: torch.Tensor, val: torch.Tensor) -> torch.Tensor:
-    """Masked argmin, first minimum on ties (row index is arrival
-    order for every monolithic job set; the ``akey`` tie-break of the
-    streaming engine is not ported yet)."""
-    return torch.where(mask, val, _INF).argmin(-1)
+def _argmin_key(mask: torch.Tensor, val: torch.Tensor,
+                akey: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Masked argmin; among tied minima the smallest ``akey`` (global
+    arrival order) wins, as ``sim_jax._argmin_key`` picks it. With
+    ``akey`` None (row index is arrival order) the first minimum."""
+    if akey is None:
+        return torch.where(mask, val, _INF).argmin(-1)
+    best = torch.where(mask, val, _INF).amin(-1, keepdim=True)
+    return torch.where(mask & (val == best), akey, _INF).argmin(-1)
 
 
-def _argmax_key(mask: torch.Tensor, val: torch.Tensor) -> torch.Tensor:
-    """Masked argmax twin of :func:`_argmin_key`."""
-    return torch.where(mask, val, -_INF).argmax(-1)
+def _argmax_key(mask: torch.Tensor, val: torch.Tensor,
+                akey: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Masked argmax twin of :func:`_argmin_key` (ties: smallest
+    ``akey``)."""
+    if akey is None:
+        return torch.where(mask, val, -_INF).argmax(-1)
+    best = torch.where(mask, val, -_INF).amax(-1, keepdim=True)
+    return torch.where(mask & (val == best), akey, _INF).argmin(-1)
 
 
 def _release(assign: torch.Tensor, demand: torch.Tensor,
@@ -506,8 +536,9 @@ def _gang_select(st: State, jobs: Jobs, te: int, w: int, rank_val, P,
     the min-score single victim whose eviction alone yields ``w``
     fitting nodes, among under-P-cap candidates when any exist. Else an
     accumulation in policy order (``rank_val`` higher first, under-cap
-    candidates first, first index on ties) until ``w`` nodes fit the
-    TE; when even every candidate would not suffice, nothing."""
+    candidates first, the smallest ``jobs.akey`` (else the first index)
+    on ties) until ``w`` nodes fit the TE; when even every candidate
+    would not suffice, nothing."""
     te_d = jobs.demand[te]
     free0 = st.free
     cand0 = (st.state == RUNNING) & ~jobs.is_te
@@ -519,7 +550,7 @@ def _gang_select(st: State, jobs: Jobs, te: int, w: int, rank_val, P,
         nfit1 = covers(trial, (te_d - _EPS)[None, None, :]).sum(1)
         pool = cand0 & (under0 | ~(cand0 & under0).any())
         single = pool & (nfit1 >= w)
-        v1 = _argmin_key(single, score)
+        v1 = _argmin_key(single, score, jobs.akey)
         have, v1, u1 = _ints(single.any(), v1, _at(under0, v1))
         if have:
             return [(v1, not u1)]
@@ -531,7 +562,7 @@ def _gang_select(st: State, jobs: Jobs, te: int, w: int, rank_val, P,
         c = cand0 & ~taken
         m1 = c & under0
         m1_any = m1.any()
-        v = _argmax_key(torch.where(m1_any, m1, c), rank_val)
+        v = _argmax_key(torch.where(m1_any, m1, c), rank_val, jobs.akey)
         sat, c_any, m1_any, v = _ints(satisfied, c.any(), m1_any, v)
         if sat or not c_any:
             return picks if sat else []
@@ -555,13 +586,19 @@ class _Pass(NamedTuple):
 
 
 def _make_step(cfg: SimConfig, jobs: Jobs, n_nodes: int,
-               time_mode: str = None, trace: bool = False):
+               time_mode: str = None, trace: bool = False,
+               ext_arrival: Optional[int] = None):
     """Build ``step(State, _Cache)``: one scheduling tick, plus — in
     ``"event"`` time mode — the jump over the following run of provably
     no-op ticks (bit-exact either way). Both arguments are updated in
     place. ``trace`` builds the event emission (the State must then
     carry a ring, ``init_state(trace_capacity=...)``); without it no
-    emission code runs."""
+    emission code runs. ``ext_arrival`` is a streamed round's boundary
+    (:func:`run_round`), folded into every recomputed next arrival.
+
+    Tensors derived from ``jobs`` are taken here, once: a caller that
+    writes ``jobs`` in place (the stream engine's pack) builds a new
+    step afterwards."""
     dev = jobs.device
     N = jobs.submit.shape[0]
     node_cap = torch.tensor(cfg.cluster.node.as_tuple(), dtype=F32,
@@ -583,7 +620,9 @@ def _make_step(cfg: SimConfig, jobs: Jobs, n_nodes: int,
     # the queue pass scores no candidates: its Eq. 3 normalizers are the
     # clamped empty-mask pair, the same for the whole run
     no_cand_norms = ops.normalizers(jobs.demand, gp_f, no_jobs, node_cap)
-    arrival_keys = torch.arange(N, dtype=F32, device=dev)
+    akey = jobs.akey
+    arrival_keys = (torch.arange(N, dtype=F32, device=dev) if akey is None
+                    else akey)
     ones = torch.ones(N, dtype=I32, device=dev)
     # a gang's score policies rank its victims on their total demand
     total_jobs = dataclasses.replace(
@@ -653,14 +692,14 @@ def _make_step(cfg: SimConfig, jobs: Jobs, n_nodes: int,
             main = ops.schedule_step(
                 jobs.demand, gp_f, jobs.width, st.queue_key, st.assign,
                 st.free, st.pending_free, cand, under, be_q, jobs.demand[te],
-                node_cap, s=s).victim
+                node_cap, s=s, akey=akey).victim
             mask_any = main >= 0
         else:
             score = spec.score(jobs, cand, node_cap, s)
             best, _ = _best_victim_node(st.free, st.assign, jobs.demand,
                                         jobs.demand[te])
             mask = cand & (best >= -_EPS) & under
-            main = _argmin_key(mask, score)
+            main = _argmin_key(mask, score, akey)
             mask_any = mask.any()
         p = cand.to(F32)
         p = p / p.sum().clamp(min=1.0)
@@ -686,7 +725,7 @@ def _make_step(cfg: SimConfig, jobs: Jobs, n_nodes: int,
             m1_any = m1.any()
             # two-level pick: under-cap candidates first, then rank
             pick_from = torch.where(m1_any, m1, cand)
-            v = _argmax_key(pick_from, rank_val)
+            v = _argmax_key(pick_from, rank_val, akey)
             sat, c_any, m1_any, v, node = _ints(
                 satisfied, cand.any(), m1_any, v, _at(best_node, v))
             if sat or not c_any:
@@ -707,7 +746,7 @@ def _make_step(cfg: SimConfig, jobs: Jobs, n_nodes: int,
         return ops.schedule_step(
             total_jobs.demand, gp_f, jobs.width, st.queue_key, st.assign,
             st.free, st.pending_free, cand, st.preempt_count < P, no_jobs,
-            zero3, node_cap, s=s).scores
+            zero3, node_cap, s=s, akey=akey).scores
 
     def uniform(st: State):
         """The rank policies' draw: one uniform per job."""
@@ -839,8 +878,8 @@ def _make_step(cfg: SimConfig, jobs: Jobs, n_nodes: int,
         return queue_pass(st, head_mask(st))
 
     def arrivals(st: State, cache: _Cache) -> None:
-        """Queue every submitted job, keyed by arrival order (= row
-        index), when the cached next arrival is due."""
+        """Queue every submitted job, keyed by arrival order (row index,
+        or ``jobs.akey``), when the cached next arrival is due."""
         if cache.next_arrival > st.t:
             return
         arrive = (jobs.submit <= st.t) & (st.state == NOT_ARRIVED)
@@ -849,6 +888,8 @@ def _make_step(cfg: SimConfig, jobs: Jobs, n_nodes: int,
         nxt = torch.where(st.state == NOT_ARRIVED, jobs.submit, _BIG).min()
         nxt, n_te, n_all = _ints(nxt, (arrive & jobs.is_te).sum(),
                                  arrive.sum())
+        if ext_arrival is not None:
+            nxt = min(nxt, int(ext_arrival))
         if ring is not None:
             ring.masked(st, arrive, n_all, st.t, (obs_schema.SUBMIT,),
                         (-1,))
@@ -858,11 +899,16 @@ def _make_step(cfg: SimConfig, jobs: Jobs, n_nodes: int,
 
     def vacates(st: State, cache: _Cache) -> None:
         """Vacate grace-expired victims: requeue on top, FIFO among
-        same-tick vacates in job-index order."""
+        same-tick vacates in arrival order (job index, or ``jobs.akey``:
+        a sort over the vacating rows gives the ranks JAX counts by
+        comparison)."""
         if cache.next_vacate > st.t:
             return
         vac = (st.state == GRACE) & (st.grace_left <= 0)
-        rank = vac.cumsum(0) - 1
+        if akey is None:
+            rank = vac.cumsum(0) - 1
+        else:
+            rank = torch.where(vac, akey, _INF).argsort().argsort()
         te_dec = torch.zeros(N + 1, dtype=I32, device=dev).scatter_add_(
             0, torch.where(vac, st.victim_of, N).long(), ones)[:N]
         freed = _release(st.assign, jobs.demand, vac)
@@ -1042,6 +1088,34 @@ def run(cfg: SimConfig, jobs: Jobs, seed: int = 0,
     if stats is not None:
         stats["iterations"] = iterations
         stats["acting_ticks"] = acting
+    return st
+
+
+def run_round(cfg: SimConfig, jobs: Jobs, st: State,
+              round_end: Optional[int] = None,
+              time_mode: Optional[str] = None, trace: bool = False,
+              stats: Optional[dict] = None) -> State:
+    """Resume an in-flight State for one streamed macro-round (the
+    counterpart of ``sim_jax.run_round``): run the loop until every job
+    of ``jobs`` is DONE or ``st.t`` reaches ``round_end``, the submit
+    tick of the earliest job not in ``jobs`` yet (None: no more
+    arrivals, run to the end). That tick is not executed: the next
+    round's first iteration runs it with the new arrivals in. ``jobs``
+    is the stream engine's slot pool, with ``Jobs.akey`` stamped in
+    global arrival order. ``stats``, when given, has ``iterations`` and
+    ``acting_ticks`` added to."""
+    step = _make_step(cfg, jobs, cfg.cluster.n_nodes, time_mode=time_mode,
+                      trace=trace, ext_arrival=round_end)
+    cache = _cache_from_state(jobs, st, round_end)
+    N = jobs.submit.shape[0]
+    end = MAX_TICKS if round_end is None else min(int(round_end), MAX_TICKS)
+    iterations = acting = 0
+    while st.n_done < N and st.t < end:
+        acting += step(st, cache)
+        iterations += 1
+    if stats is not None:
+        stats["iterations"] = stats.get("iterations", 0) + iterations
+        stats["acting_ticks"] = stats.get("acting_ticks", 0) + acting
     return st
 
 

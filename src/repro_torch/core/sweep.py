@@ -64,9 +64,7 @@ def sensitivity_grid(cfg: SimConfig, n_jobs: int, s_vals: Sequence[float],
     stacked = stack_jobsets([workload.generate(base, seed=sd)
                              for sd in seeds])
     ns, nt = len(s_vals), len(seeds)
-    rep = Jobs(**{f.name: getattr(stacked, f.name).repeat(
-        (ns,) + (1,) * (getattr(stacked, f.name).dim() - 1))
-        for f in dataclasses.fields(Jobs)})
+    rep = stacked.map(lambda x: x.repeat((ns,) + (1,) * (x.dim() - 1)))
     s_flat = np.repeat(np.asarray(s_vals, np.float32), nt)
     P_flat = np.full(ns * nt, base.max_preemptions, np.int32)
     seed_flat = np.tile(np.asarray(seeds, np.uint32), ns)

@@ -283,8 +283,7 @@ def run_table(cfg: SimConfig, table: TrialTable, *,
         time_mode = cfg.time_mode
     T = int(table.s.shape[0])
     mesh_for_sweep(T, devices=devices, device=dev)
-    jobs = Jobs(**{f.name: getattr(table.jobs, f.name).to(dev)
-                   for f in dataclasses.fields(Jobs)})
+    jobs = table.jobs.map(lambda x: x.to(dev))
     engine_stats: Dict = {}
     st = sim_batch.run(cfg, jobs, table.s.to(dev), table.P.to(dev),
                        table.seed.to(dev), time_mode=time_mode,

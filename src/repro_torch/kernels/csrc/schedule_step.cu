@@ -14,12 +14,16 @@
 //   fit_now[b,j]  row count of fits; fit_pend[b,j] the same count
 //                 against free + pending_free
 //   victim        Eq. 4 argmin of scores over cand & under & Eq. 2
-//                 (best assigned node's min slack (free+d)-te >= -eps)
+//                 (best assigned node's min slack (free+d)-te >= -eps);
+//                 with an akey (the stream engine's global arrival
+//                 order) in (score, akey, index) order
 //   be_head       argmin queue_key over be_q
 //   be_pick       argmin queue_key over be_q & fit_now >= width
 //   nskip         #(be_q & fit_now < width & queue_key < key(be_pick))
-// Every argmin takes the lowest index among ties; an empty mask gives
-// -1. Indices are int32 end to end.
+// Every argmin takes the lowest index among ties (the victim's after the
+// smallest akey where one is given); an empty mask gives -1. Indices are
+// int32 end to end. The kernel has two instantiations: with an akey, and
+// without one (a null pointer), which carries and compares no key.
 //
 // Bound: at the main-path shape (B=1, J=65536, M=84) the pass is bound
 // by bytes, chiefly the (J, M) int32 `fits` write (22 MB) and the
@@ -46,7 +50,7 @@
 //   nodes the tile takes its nodes kChunk at a time: each range's
 //   assign bytes by plain loads, each row's range of fits stored as its
 //   own run. The three (value, index) argmins are reduced over the tile
-//   and written as one partial per tile.
+//   and written as one partial per tile (the victim's akey beside it).
 //  cooperative_groups::this_grid().sync().
 //  Phase B: a block reduces the partials of each batch row it owns
 //   tiles of, in index order with lex_min, a total order: every block
@@ -81,33 +85,52 @@ static_assert(kTile * kChunk < (1 << 24), "slab indices must be exact floats");
 __device__ __forceinline__ float inf_f() { return __int_as_float(0x7f800000); }
 
 struct ArgMin {
-  float v;
+  float v;  // the value minimised
+  float k;  // the tie-break key (akey for the victim, else 0)
   int i;
 };
 
-// Lexicographic (value, index) minimum: a total order, so any
-// reduction order gives the same pair.
+// Lexicographic (value, key, index) minimum with kKey, else (value,
+// index): a total order, so any reduction order gives the same result.
+// Only the victim's argmin keys (and only with an akey): without one
+// the key costs no shuffle and no compare.
+template <bool kKey>
 __device__ __forceinline__ ArgMin lex_min(ArgMin a, ArgMin b) {
+  if (kKey)
+    return (b.v < a.v ||
+            (b.v == a.v && (b.k < a.k || (b.k == a.k && b.i < a.i))))
+               ? b
+               : a;
   return (b.v < a.v || (b.v == a.v && b.i < a.i)) ? b : a;
 }
 
+template <bool kKey>
 __device__ __forceinline__ ArgMin warp_min(ArgMin a) {
   for (int off = 16; off > 0; off >>= 1) {
     ArgMin o;
     o.v = __shfl_xor_sync(0xffffffffu, a.v, off);
+    o.k = kKey ? __shfl_xor_sync(0xffffffffu, a.k, off) : a.k;
     o.i = __shfl_xor_sync(0xffffffffu, a.i, off);
-    a = lex_min(a, o);
+    a = lex_min<kKey>(a, o);
   }
   return a;
 }
 
+// The q-th argmin of a pass keys when it is the victim's (q = 0) and
+// the pass has an akey.
+template <bool kAkey>
+__device__ __forceinline__ ArgMin warp_min_q(ArgMin a, int q) {
+  return q == 0 ? warp_min<kAkey>(a) : warp_min<false>(a);
+}
+
 // Three block-wide argmins at once, valid in every thread. Every
 // thread of the block must call it (it synchronises twice).
+template <bool kAkey>
 __device__ void block_min3(ArgMin (&a)[3], ArgMin (*sh)[3]) {
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
 #pragma unroll
-  for (int q = 0; q < 3; ++q) a[q] = warp_min(a[q]);
+  for (int q = 0; q < 3; ++q) a[q] = warp_min_q<kAkey>(a[q], q);
   if (lane == 0) {
 #pragma unroll
     for (int q = 0; q < 3; ++q) sh[warp][q] = a[q];
@@ -115,8 +138,8 @@ __device__ void block_min3(ArgMin (&a)[3], ArgMin (*sh)[3]) {
   __syncthreads();
 #pragma unroll
   for (int q = 0; q < 3; ++q) {
-    a[q] = lane < kTile / 32 ? sh[lane][q] : ArgMin{inf_f(), kNone};
-    a[q] = warp_min(a[q]);
+    a[q] = lane < kTile / 32 ? sh[lane][q] : ArgMin{inf_f(), 0.f, kNone};
+    a[q] = warp_min_q<kAkey>(a[q], q);
   }
   __syncthreads();
 }
@@ -154,6 +177,9 @@ __host__ __device__ inline size_t smem_bytes(int ms) {
   return asg_offset(ms) + static_cast<size_t>(kTile) * ms + 32;
 }
 
+// kAkey: the victim's argmin is keyed by akey (non-null); without it
+// the kernel is the (score, index) pass.
+template <bool kAkey>
 __global__ void __launch_bounds__(kTile) schedule_step_kernel(
     const float* __restrict__ demand, const float* __restrict__ gp,
     const int* __restrict__ width, const float* __restrict__ queue_key,
@@ -164,7 +190,8 @@ __global__ void __launch_bounds__(kTile) schedule_step_kernel(
     const float* __restrict__ max_sz, const float* __restrict__ max_gp,
     const float* __restrict__ s_w, float* __restrict__ scores,
     int* __restrict__ fits, int* fit_now, int* __restrict__ fit_pend,
-    int* out, float* part_val, int* part_idx, int B, int J, int M) {
+    int* out, float* part_val, int* part_idx,
+    const float* __restrict__ akey, int B, int J, int M) {
   extern __shared__ __align__(16) uint8_t smem[];
   const int ms = staged(M);
   float4* sh_nodes = reinterpret_cast<float4*>(smem);
@@ -373,7 +400,8 @@ __global__ void __launch_bounds__(kTile) schedule_step_kernel(
     }
 
     // victim, be_head, be_pick
-    ArgMin r[3] = {{inf_f(), kNone}, {inf_f(), kNone}, {inf_f(), kNone}};
+    ArgMin r[3] = {{inf_f(), 0.f, kNone}, {inf_f(), 0.f, kNone},
+                   {inf_f(), 0.f, kNone}};
     if (live) {
       const float x0 = d0 / node_cap[b * 3 + 0];
       const float x1 = d1 / node_cap[b * 3 + 1];
@@ -384,20 +412,23 @@ __global__ void __launch_bounds__(kTile) schedule_step_kernel(
       fit_now[bj] = n_now;
       fit_pend[bj] = n_pend;
       const float key = queue_key[bj];
-      if (cand[bj] && under[bj] && best >= -kEps) r[0] = ArgMin{score, j};
+      if (cand[bj] && under[bj] && best >= -kEps)
+        r[0] = ArgMin{score, kAkey ? akey[bj] : 0.f, j};
       if (be_q[bj]) {
-        r[1] = ArgMin{key, j};
-        if (n_now >= width[bj]) r[2] = ArgMin{key, j};
+        r[1] = ArgMin{key, 0.f, j};
+        if (n_now >= width[bj]) r[2] = ArgMin{key, 0.f, j};
       }
     }
-    block_min3(r, sh_red);                 // also ends the tile's smem use
+    block_min3<kAkey>(r, sh_red);          // also ends the tile's smem use
     if (tid == 0) {
       const size_t p = static_cast<size_t>(t) * 3;
+      const size_t pv = static_cast<size_t>(t) * 4;
 #pragma unroll
       for (int q = 0; q < 3; ++q) {
-        part_val[p + q] = r[q].v;
+        part_val[pv + q] = r[q].v;
         part_idx[p + q] = r[q].i;
       }
+      if (kAkey) part_val[pv + 3] = r[0].k;
       if (tile == 0) out[b * 4 + 3] = 0;
     }
   }
@@ -411,14 +442,20 @@ __global__ void __launch_bounds__(kTile) schedule_step_kernel(
     const int b = t / n_tiles, tile = t - b * n_tiles;
     if (b != cur_b) {
       cur_b = b;
-      ArgMin r[3] = {{inf_f(), kNone}, {inf_f(), kNone}, {inf_f(), kNone}};
+      ArgMin r[3] = {{inf_f(), 0.f, kNone}, {inf_f(), 0.f, kNone},
+                     {inf_f(), 0.f, kNone}};
       for (int i = tid; i < n_tiles; i += kTile) {
-        const size_t p = (static_cast<size_t>(b) * n_tiles + i) * 3;
+        const size_t ti = static_cast<size_t>(b) * n_tiles + i;
+        const size_t p = ti * 3, pv = ti * 4;
+        r[0] = lex_min<kAkey>(
+            r[0], ArgMin{part_val[pv], kAkey ? part_val[pv + 3] : 0.f,
+                         part_idx[p]});
 #pragma unroll
-        for (int q = 0; q < 3; ++q)
-          r[q] = lex_min(r[q], ArgMin{part_val[p + q], part_idx[p + q]});
+        for (int q = 1; q < 3; ++q)
+          r[q] = lex_min<false>(
+              r[q], ArgMin{part_val[pv + q], 0.f, part_idx[p + q]});
       }
-      block_min3(r, sh_red);
+      block_min3<kAkey>(r, sh_red);
       // the pick's carried value IS queue_key[be_pick]
       pick_key = r[2].i == kNone ? inf_f() : r[2].v;
       if (tile == 0 && tid == 0) {
@@ -445,6 +482,31 @@ struct LaunchShape {       // the occupancy of the last (device, M) seen
   int sms = 0;
 };
 
+// Refreshes `shape` for `kernel` (one instantiation) at M nodes on `dev`.
+cudaError_t update_shape(const void* kernel, int dev, int M, size_t smem,
+                         LaunchShape& shape) {
+  if (dev == shape.dev && M == shape.M) return cudaSuccess;
+  cudaError_t err = cudaSuccess;
+  if (smem > 48 * 1024) {
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+  }
+  int sms = 0, per_sm = 0;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kTile,
+                                                      smem);
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
+  shape.dev = dev;
+  shape.M = M;
+  shape.per_sm = per_sm;
+  shape.sms = sms;
+  return cudaSuccess;
+}
+
 }  // namespace
 
 // Launches the kernel on `stream` (PyTorch's current stream; no
@@ -453,9 +515,11 @@ struct LaunchShape {       // the occupancy of the last (device, M) seen
 // (B,J,M) u8; free, pending_free (B,M,3); cand, under, be_q (B,J) u8;
 // te_demand, node_cap (B,3); max_sz, max_gp, s (B,). Outputs scores
 // (B,J) f32, fits (B,J,M) i32, fit_now, fit_pend (B,J) i32, out (B,4)
-// i32 = (victim, be_head, be_pick, nskip); scratch part_val (B,nt,3)
-// f32 and part_idx (B,nt,3) i32 with nt = ceil(J/256), one partial per
-// tile. Returns the CUDA error code (0 on success).
+// i32 = (victim, be_head, be_pick, nskip); scratch part_val (B,nt,4)
+// f32 (three values and the victim's akey) and part_idx (B,nt,3) i32
+// with nt = ceil(J/256), one partial per tile. akey (B,J) f32, or null
+// for the (score, index) victim order. Returns the CUDA error code (0
+// on success).
 extern "C" int schedule_step_launch(
     const float* demand, const float* gp, const int* width,
     const float* queue_key, const uint8_t* assign, const float* free_,
@@ -463,33 +527,22 @@ extern "C" int schedule_step_launch(
     const uint8_t* be_q, const float* te_demand, const float* node_cap,
     const float* max_sz, const float* max_gp, const float* s_w,
     float* scores, int* fits, int* fit_now, int* fit_pend, int* out,
-    float* part_val, int* part_idx, int B, int J, int M, void* stream) {
-  static thread_local LaunchShape shape;
+    float* part_val, int* part_idx, const float* akey, int B, int J, int M,
+    void* stream) {
+  static thread_local LaunchShape shapes[2];   // without, with akey
   if (B < 1 || J < 1 || M < 1) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const size_t smem = smem_bytes(staged(M));
+  const bool keyed = akey != nullptr;
+  const void* kernel =
+      keyed ? reinterpret_cast<const void*>(schedule_step_kernel<true>)
+            : reinterpret_cast<const void*>(schedule_step_kernel<false>);
+  LaunchShape& shape = shapes[keyed];
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (dev != shape.dev || M != shape.M) {
-    if (smem > 48 * 1024) {
-      err = cudaFuncSetAttribute(schedule_step_kernel,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 static_cast<int>(smem));
-      if (err != cudaSuccess) return static_cast<int>(err);
-    }
-    int sms = 0, per_sm = 0;
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, schedule_step_kernel, kTile, smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    if (per_sm < 1) return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
-    shape.dev = dev;
-    shape.M = M;
-    shape.per_sm = per_sm;
-    shape.sms = sms;
-  }
+  err = update_shape(kernel, dev, M, smem, shape);
+  if (err != cudaSuccess) return static_cast<int>(err);
   const long long tiles =
       static_cast<long long>(B) * ((J + kTile - 1) / kTile);
   const int grid = static_cast<int>(
@@ -500,10 +553,10 @@ extern "C" int schedule_step_launch(
                   &free_,    &pending_free, &cand, &under,     &be_q,
                   &te_demand, &node_cap, &max_sz,  &max_gp,    &s_w,
                   &scores,   &fits,     &fit_now,  &fit_pend,  &out,
-                  &part_val, &part_idx, &B,        &J,         &M};
-  err = cudaLaunchCooperativeKernel(
-      reinterpret_cast<const void*>(schedule_step_kernel), dim3(grid),
-      dim3(kTile), args, smem, st);
+                  &part_val, &part_idx, &akey,     &B,         &J,
+                  &M};
+  err = cudaLaunchCooperativeKernel(kernel, dim3(grid), dim3(kTile), args,
+                                    smem, st);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

@@ -46,7 +46,7 @@ def normalizers(demand, gp, cand, node_cap):
 
 def schedule_step(demand, gp, width, queue_key, assign, free,
                   pending_free, cand, under, be_q, te_demand, node_cap,
-                  *, s=PAPER_S, norms=None) -> _ss.SchedulePass:
+                  *, s=PAPER_S, norms=None, akey=None) -> _ss.SchedulePass:
     """One fused schedule pass over the (jobs, nodes) tile — Eq. 3
     scoring, Eq. 2 best-victim-node reduction, Eq. 4 masked argmin,
     fit counts now and promised, and the BE head / first-fit /
@@ -59,11 +59,13 @@ def schedule_step(demand, gp, width, queue_key, assign, free,
     per-node argument, ``te_demand`` is (3,) or (B, 3), ``s`` (B,) and
     the normalizers are per row. ``norms`` is the ``(max_sz, max_gp)``
     pair of :func:`normalizers` when the caller already holds it (a
-    ``cand`` mask fixed for a run); otherwise it is computed here."""
+    ``cand`` mask fixed for a run); otherwise it is computed here.
+    ``akey`` ((J,) or (B, J) f32, or None) breaks the victim's score
+    ties by the smallest key before the lowest index."""
     max_sz, max_gp = normalizers(demand, gp, cand, node_cap) \
         if norms is None else norms
     args = (demand, gp, width, queue_key, assign, free, pending_free, cand,
-            under, be_q, te_demand, node_cap, max_sz, max_gp, s)
+            under, be_q, te_demand, node_cap, max_sz, max_gp, s, akey)
     if demand.device.type != "cuda" or _FORCE_PLAIN:
         return _ss.schedule_step_torch(*args)
     return _ss.schedule_step_cuda(*args, events=KERNEL_EVENTS)

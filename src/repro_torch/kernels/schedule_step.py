@@ -10,6 +10,8 @@ One evaluation of everything a scheduler pass consumes over the
 * ``fit_pend`` (J,)  i32 — the same counts against free + pending_free;
 * ``victim``   ()    i32 — Eq. 4 argmin over cand & under & Eq. 2
   (eligibility against each candidate's BEST assigned node), -1 if none;
+  ties go to the smallest ``akey`` when one is given (the stream
+  engine's global arrival order), then to the lowest index;
 * ``be_head``  ()    i32 — min-queue-key job of ``be_q``, -1 if empty;
 * ``be_pick``  ()    i32 — min-queue-key job of ``be_q`` that fits now;
 * ``nskip``    ()    i32 — non-fitting ``be_q`` jobs keyed ahead of it.
@@ -74,14 +76,16 @@ def covers(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def schedule_step_torch(demand, gp, width, queue_key, assign, free,
                         pending_free, cand, under, be_q, te_demand,
-                        node_cap, max_sz, max_gp, s) -> SchedulePass:
+                        node_cap, max_sz, max_gp, s,
+                        akey=None) -> SchedulePass:
     """Plain PyTorch version of the fused pass (the CUDA kernel's
     reference, and what the port runs for CPU tensors).
 
     demand (...,J,3) f32; gp/queue_key (...,J) f32; width (...,J) i32;
     assign (...,J,M) bool; free/pending_free (...,M,3) f32;
     cand/under/be_q (...,J) bool; te_demand/node_cap (...,3);
-    max_sz/max_gp/s scalars or (...,) (normalizers pre-clamped)."""
+    max_sz/max_gp/s scalars or (...,) (normalizers pre-clamped);
+    ``akey`` None or (...,J) f32, the victim's tie-break."""
     dev = demand.device
     demand = demand.float()
     free = free.float()
@@ -102,8 +106,13 @@ def schedule_step_torch(demand, gp, width, queue_key, assign, free,
     slack = torch.minimum(torch.minimum(sl[..., 0], sl[..., 1]), sl[..., 2])
     best = torch.where(assign, slack, -_INF).amax(-1)
     allowed = cand & under & (best >= -FIT_EPS)
-    victim = torch.where(allowed.any(-1),
-                         torch.where(allowed, scores, _INF).argmin(-1), -1)
+    masked = torch.where(allowed, scores, _INF)
+    if akey is None:
+        first = masked.argmin(-1)
+    else:                 # (score, akey, index) order
+        tied = allowed & (scores == masked.amin(-1, keepdim=True))
+        first = torch.where(tied, akey, _INF).argmin(-1)
+    victim = torch.where(allowed.any(-1), first, -1)
     # BE queue scan: head, first fit in key order, skips ahead of it
     be_head = torch.where(be_q.any(-1),
                           torch.where(be_q, queue_key, _INF).argmin(-1), -1)
@@ -120,7 +129,7 @@ def schedule_step_torch(demand, gp, width, queue_key, assign, free,
                         be_pick.to(torch.int32), nskip)
 
 
-_ARGTYPES = [ctypes.c_void_p] * 22 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 23 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
 
 
 def _lib() -> ctypes.CDLL:
@@ -143,7 +152,7 @@ def _check(name, x, dtype, shape):
 
 def schedule_step_cuda(demand, gp, width, queue_key, assign, free,
                        pending_free, cand, under, be_q, te_demand,
-                       node_cap, max_sz, max_gp, s, *,
+                       node_cap, max_sz, max_gp, s, akey=None, *,
                        events=None) -> SchedulePass:
     """Launch the CUDA kernel (``csrc/schedule_step.cu``, one
     cooperative launch a pass) on the current stream; same contract as
@@ -159,6 +168,8 @@ def schedule_step_cuda(demand, gp, width, queue_key, assign, free,
             under, be_q = (x.unsqueeze(0) for x in (
                 demand, gp, width, queue_key, assign, free, pending_free,
                 cand, under, be_q))
+        if akey is not None:
+            akey = akey.unsqueeze(0)
     B, J, _ = demand.shape
     M = free.shape[1]
     dev = demand.device
@@ -188,7 +199,10 @@ def schedule_step_cuda(demand, gp, width, queue_key, assign, free,
             ("pending_free", pending_free, torch.float32, (B, M, 3)),
             ("cand", cand, torch.bool, (B, J)),
             ("under", under, torch.bool, (B, J)),
-            ("be_q", be_q, torch.bool, (B, J))):
+            ("be_q", be_q, torch.bool, (B, J)),
+            ("akey", akey, torch.float32, (B, J))):
+        if x is None:                 # no akey: ties by index alone
+            continue
         _check(name, x, dtype, shape)
         if x.device != dev:
             raise ValueError(f"schedule_step_cuda: {name} is on {x.device},"
@@ -199,13 +213,15 @@ def schedule_step_cuda(demand, gp, width, queue_key, assign, free,
     fit_now = torch.empty((B, J), dtype=torch.int32, device=dev)
     fit_pend = torch.empty((B, J), dtype=torch.int32, device=dev)
     out = torch.empty((B, 4), dtype=torch.int32, device=dev)
-    part_val = torch.empty((B, n_tiles, 3), dtype=torch.float32, device=dev)
+    # per tile: the three argmins' values and the victim's akey
+    part_val = torch.empty((B, n_tiles, 4), dtype=torch.float32, device=dev)
     part_idx = torch.empty((B, n_tiles, 3), dtype=torch.int32, device=dev)
     lib = _lib()
     ptrs = [x.data_ptr() for x in (
         demand, gp, width, queue_key, assign, free, pending_free, cand,
         under, be_q, te_demand, node_cap, max_sz, max_gp, s, scores, fits,
-        fit_now, fit_pend, out, part_val, part_idx)]
+        fit_now, fit_pend, out, part_val, part_idx)] \
+        + [None if akey is None else akey.data_ptr()]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev)
         if events is not None:

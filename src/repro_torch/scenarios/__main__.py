@@ -3,10 +3,12 @@
     PYTHONPATH=src python -m repro_torch.scenarios list
         [--kind synthetic|trace]
     PYTHONPATH=src python -m repro_torch.scenarios describe NAME
+        [--n-jobs 512]
     PYTHONPATH=src python -m repro_torch.scenarios run NAME
         [--policy fitgpp] [--engine torch|reference] [--device cuda|cpu]
         [--n-jobs 512] [--nodes 16] [--seed 0] [--mode event|tick]
         [--trace out.json [--trace-format perfetto|csv]]
+        [--stream [--capacity N] [--closed-loop]]
     PYTHONPATH=src python -m repro_torch.scenarios sweep NAME [NAME ...]
         [--seeds 0,1] [--n-jobs 256] [--policy fitgpp] [--device cuda|cpu]
         [--mode event|tick] [--devices N] [--mesh auto|off]
@@ -14,20 +16,23 @@
 ``run`` replays one scenario through ``repro_torch.api.run_experiment``
 on either engine (any policy of the port's table) and prints the
 paper-style slowdown table; ``--trace`` writes the run's event stream
-through ``obs.export``. ``sweep`` batches every (scenario, seed) trial,
-ragged job counts included, into one batched engine run
-(``api.scenario_sweep``). The tables are the JAX CLI's.
+through ``obs.export``. With ``--stream`` it goes through the stream
+engine (``repro_torch.api.run_stream``) instead, whose memory scales
+with ``--capacity`` rather than the trace length. ``sweep`` batches
+every (scenario, seed) trial, ragged job counts included, into one
+batched engine run (``api.scenario_sweep``). ``describe`` adds one-pass
+stream statistics (job counts, TE/BE split, the reader's drop counts)
+for scenarios with a registered streaming source. The tables are the
+JAX CLI's.
 
 ``run`` takes the torch engine unless ``--engine reference`` is given
 (the facade's default; the JAX CLI defaults to its reference engine).
-The torch engine and the sweep run on ``--device``, the current CUDA
-device by default (``--device cpu`` runs the plain PyTorch path); the
-reference engine runs on the host, and ``--device`` with it is refused.
-``--score-backend`` is left out: in the port the tensors' device picks
-between the CUDA kernel and its plain version. ``run --stream`` raises:
-the streaming macro-round engine is not ported yet (ROADMAP, item 6),
-and ``describe`` prints no one-pass stream statistics for the same
-reason.
+The torch engine, the stream engine and the sweep run on ``--device``,
+the current CUDA device by default (``--device cpu`` runs the plain
+PyTorch path); the reference engine runs on the host, and ``--device``
+or ``--stream`` with it is refused. ``--score-backend`` is left out: in
+the port the tensors' device picks between the CUDA kernel and its
+plain version.
 """
 from __future__ import annotations
 
@@ -72,14 +77,71 @@ def cmd_describe(args) -> None:
         print("\n  knobs:")
         for k, v in sc.knobs:
             print(f"    {k:28s} {v}")
+    if sc.source is not None:
+        # one bounded-memory pass over the registered stream: job
+        # counts, class split and the reader's drop counts in one read
+        from repro_torch.core import stream
+        cfg = SimConfig(cluster=ClusterSpec(n_nodes=args.nodes),
+                        workload=WorkloadSpec(n_jobs=args.n_jobs),
+                        seed=args.seed)
+        info = stream.scan(sc.source(cfg))
+        print(f"\n  stream (one pass, n_jobs={args.n_jobs}):")
+        print(f"    {info.n_jobs} jobs: {info.n_te} TE / {info.n_be} BE, "
+              f"{info.n_gang} gangs; horizon {info.horizon} min, "
+              f"{info.total_exec_min} exec-min total")
+        ts = info.stats
+        if ts is not None:
+            print(f"    kept {ts.n_jobs}/{ts.n_rows} rows (dropped: "
+                  f"{ts.n_malformed} malformed, {ts.n_zero_runtime} "
+                  f"zero-runtime, {ts.n_too_wide} too-wide, "
+                  f"{ts.n_filtered_status} status-filtered)")
+
+
+def _write_trace(args, cfg, r, is_te) -> None:
+    from repro_torch.obs import export
+    export.write_trace(args.trace, r.events, fmt=args.trace_format,
+                       n_nodes=cfg.cluster.n_nodes, is_te=is_te,
+                       preemptive=api.get_policy(cfg.policy).preemptive)
+    print(f"{len(r.events)} events -> {args.trace} [{args.trace_format}]"
+          + (f" (WARNING: {r.trace_overflow} rows dropped)"
+             if r.trace_overflow else ""))
+
+
+def _print_result(r) -> None:
+    print(metrics.format_table(
+        {r.policy: r.table},
+        f"slowdown percentiles (makespan {r.makespan} min)"))
+    print(f"resched intervals [min]: p50={r.intervals['p50']:.1f} "
+          f"p95={r.intervals['p95']:.1f}   preempted "
+          f"{r.preempted_frac * 100:.1f}% of BE jobs")
+
+
+def cmd_stream(args, cfg) -> None:
+    r = api.run_stream(args.name, cfg.policy, cfg=cfg,
+                       capacity=args.capacity, mode=args.mode,
+                       trace=bool(args.trace),
+                       admission=(True if args.closed_loop else None),
+                       device=args.device)
+    res = r.raw
+    arrivals = (f"closed-loop (load {cfg.workload.load:g}) "
+                if args.closed_loop else "")
+    print(f"{args.name}: {res.n_jobs} jobs streamed {arrivals}through "
+          f"{res.capacity} slots in {res.rounds} rounds "
+          f"(peak live {res.max_live}, spilled {res.n_spilled}), "
+          f"policy={cfg.policy}, engine=stream, "
+          f"nodes={cfg.cluster.n_nodes}")
+    _print_result(r)
+    print(f"fallback_count={r.fallback_count} "
+          f"trace_overflow={r.trace_overflow}")
+    if args.trace:
+        _write_trace(args, cfg, r, res.is_te)
 
 
 def cmd_run(args) -> None:
-    if args.stream:
-        raise NotImplementedError(
-            "run --stream needs the port's stream engine, which is not "
-            "ported yet (ROADMAP.md, item 6); run without --stream")
     cfg = _cfg(args)
+    if args.stream:
+        cmd_stream(args, cfg)
+        return
     js = scenarios.build(args.name, cfg)
     gangs = int((np.asarray(js.n_nodes) > 1).sum())
     print(f"{args.name}: {js.n} jobs ({int(js.is_te.sum())} TE, "
@@ -89,26 +151,12 @@ def cmd_run(args) -> None:
     r = api.run_experiment(args.name, cfg.policy, args.engine, cfg=cfg,
                            jobs=js, mode=args.mode, trace=bool(args.trace),
                            device=args.device)
-    print(metrics.format_table(
-        {r.policy: r.table},
-        f"slowdown percentiles (makespan {r.makespan} min)"))
-    print(f"resched intervals [min]: p50={r.intervals['p50']:.1f} "
-          f"p95={r.intervals['p95']:.1f}   preempted "
-          f"{r.preempted_frac * 100:.1f}% of BE jobs")
+    _print_result(r)
     if args.engine == "torch":
         print(f"fallback_count={r.fallback_count} "
               f"trace_overflow={r.trace_overflow}")
     if args.trace:
-        from repro_torch.obs import export
-        export.write_trace(args.trace, r.events,
-                           fmt=args.trace_format,
-                           n_nodes=cfg.cluster.n_nodes,
-                           is_te=np.asarray(js.is_te),
-                           preemptive=api.get_policy(cfg.policy).preemptive)
-        print(f"{len(r.events)} events -> {args.trace} "
-              f"[{args.trace_format}]"
-              + (f" (WARNING: {r.trace_overflow} rows dropped)"
-                 if r.trace_overflow else ""))
+        _write_trace(args, cfg, r, np.asarray(js.is_te))
 
 
 def cmd_sweep(args) -> None:
@@ -144,11 +192,12 @@ def main(argv=None) -> None:
                    default=None)
     p.set_defaults(fn=cmd_list)
 
-    p = sub.add_parser("describe", help="knobs + doc for one scenario")
+    p = sub.add_parser("describe", help="knobs + doc for one scenario "
+                                        "(+ one-pass stream stats when "
+                                        "it has a streaming source)")
     p.add_argument("name")
     p.add_argument("--n-jobs", type=int, default=512,
-                   help="accepted for the JAX CLI's calls (stream stats "
-                        "are not ported)")
+                   help="stream length for the one-pass stats (512)")
     p.add_argument("--nodes", type=int, default=16)
     p.add_argument("--seed", type=int, default=0)
     p.set_defaults(fn=cmd_describe)
@@ -183,8 +232,18 @@ def main(argv=None) -> None:
                    help="trace file format: Chrome/Perfetto JSON "
                         "(load in ui.perfetto.dev) or lossless CSV")
     p.add_argument("--stream", action="store_true",
-                   help="the streaming engine's replay: not ported "
-                        "(raises NotImplementedError)")
+                   help="replay through the bounded-memory stream engine "
+                        "(core/stream) on --device: memory scales with "
+                        "--capacity, not --n-jobs")
+    p.add_argument("--capacity", type=int, default=None,
+                   help="stream engine slot-pool size (default "
+                        "32 x nodes x max_preemptions)")
+    p.add_argument("--closed-loop", action="store_true",
+                   help="with --stream: re-stamp the source's submit "
+                        "times as closed-loop admit ticks holding the "
+                        "FIFO backlog at the workload load (paper "
+                        "§4.2; bit-exact with the monolithic "
+                        "closed-loop scenarios)")
     p.set_defaults(fn=cmd_run)
 
     p = sub.add_parser("sweep", help="ragged multi-scenario batched sweep")
@@ -204,10 +263,13 @@ def main(argv=None) -> None:
     p.set_defaults(fn=cmd_sweep)
 
     args = ap.parse_args(argv)
-    if args.cmd == "run" and args.engine == "reference" \
-            and args.device is not None:
-        ap.error("--device is the torch engine's; the reference engine "
-                 "runs on the host")
+    if args.cmd == "run" and args.engine == "reference":
+        if args.device is not None:
+            ap.error("--device is the torch engine's; the reference "
+                     "engine runs on the host")
+        if args.stream:
+            ap.error("--stream runs the stream engine on the torch "
+                     "engine; it does not take --engine reference")
     args.fn(args)
 
 

@@ -340,8 +340,13 @@ def heterogeneous_gp(cfg: SimConfig, zero_gp_frac: float = 0.5) -> JobSet:
                           is_te, gp)
 
 
+def _stream_synthetic_source(cfg: SimConfig) -> JobSource:
+    return JobSource(workload.stream_chunks(cfg))
+
+
 @register_scenario(
     "stream-synthetic", kind=SYNTHETIC,
+    source=_stream_synthetic_source,
     knobs={"n_jobs": "total jobs (workload.n_jobs; streams O(chunk))",
            "load": "open-loop arrival intensity (workload.load)",
            "chunk": "generator chunk size, jobs (1024)"})
@@ -350,14 +355,23 @@ def stream_synthetic(cfg: SimConfig) -> JobSet:
 
     The §4.4 trace-proxy arrival model in streamable form: chunk k is
     drawn entirely from ``rng((seed, k))``, so any window of the
-    stream regenerates without its prefix. Unlike ``paper-synthetic``,
+    stream regenerates without its prefix and the stream engine replays
+    10^5-10^6 jobs in O(capacity) memory. Unlike ``paper-synthetic``,
     arrivals are open-loop — sub-critical ``workload.load`` (< ~0.9)
-    keeps the backlog bounded. This entry materializes the stream."""
-    return materialize(JobSource(workload.stream_chunks(cfg)))
+    keeps the backlog bounded. This entry materializes the same stream
+    for the monolithic engines."""
+    return materialize(_stream_synthetic_source(cfg))
+
+
+def _stream_closed_loop_source(cfg: SimConfig) -> JobSource:
+    from repro_torch.core.stream.admission import ClosedLoopAdmission
+    return JobSource(ClosedLoopAdmission(
+        cfg, JobSource(workload.stream_chunks(cfg))))
 
 
 @register_scenario(
     "stream-closed-loop", kind=SYNTHETIC,
+    source=_stream_closed_loop_source,
     knobs={"n_jobs": "total jobs (workload.n_jobs; streams O(backlog))",
            "load": "FIFO-normalized backlog target (workload.load, "
                    "2.0 = the paper's saturated regime)",
@@ -367,7 +381,12 @@ def stream_closed_loop(cfg: SimConfig) -> JobSet:
     chunked synthetic job data of ``stream-synthetic`` with its
     open-loop submit times re-stamped as closed-loop admit ticks
     holding the FIFO-normalized backlog at ``workload.load``
-    (``workload.closed_loop_submit_times``, computed monolithically)."""
+    (``stream.ClosedLoopAdmission``); the closed loop itself bounds the
+    backlog, so a saturated load (2.0) streams in O(backlog + chunk)
+    memory. This entry computes the same admit ticks monolithically
+    (``workload.closed_loop_submit_times``) for the monolithic engines;
+    streamed and monolithic runs are equal
+    (``stream.verify_closed_loop_parity``)."""
     js = materialize(JobSource(workload.stream_chunks(cfg)))
     js.submit = workload.closed_loop_submit_times(cfg, js)
     return js

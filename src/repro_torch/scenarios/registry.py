@@ -11,12 +11,13 @@ generators and trace adapters register through the same decorator:
 Scenario functions honor ``cfg.workload.n_jobs`` (scale), ``cfg.seed``
 (determinism) and ``cfg.cluster`` (capacities): ``build`` validates
 every JobSet against the node shape before handing it out. The names,
-kinds and knobs are those of the JAX package's registry.
+kinds, knobs and streaming sources are those of the JAX package's
+registry.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, Dict, List, Mapping, Optional, Tuple
+from typing import Any, Callable, Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 
@@ -28,6 +29,8 @@ TRACE = "trace"
 _KINDS = (SYNTHETIC, TRACE)
 
 ScenarioFn = Callable[[SimConfig], JobSet]
+# SimConfig -> core.stream.JobSource (core/stream is imported on use)
+SourceFn = Callable[[SimConfig], Any]
 
 
 @dataclass(frozen=True)
@@ -37,6 +40,9 @@ class Scenario:
     kind: str                          # SYNTHETIC | TRACE
     description: str                   # one line
     knobs: Tuple[Tuple[str, str], ...]  # (knob, meaning) pairs
+    # Optional streaming variant: a chunked JobSource over the same
+    # workload ``fn`` describes, without materializing it
+    source: Optional[SourceFn] = None
 
     def build(self, cfg: SimConfig) -> JobSet:
         js = self.fn(cfg)
@@ -49,11 +55,16 @@ _REGISTRY: Dict[str, Scenario] = {}
 
 def register_scenario(name: str, *, kind: str = SYNTHETIC,
                       description: str = "",
-                      knobs: Optional[Mapping[str, str]] = None):
+                      knobs: Optional[Mapping[str, str]] = None,
+                      source: Optional[SourceFn] = None):
     """Decorator registering ``fn`` as scenario ``name``.
 
     ``description`` defaults to the first line of the docstring; knobs
-    document the tunable parameters (config fields or defaults)."""
+    document the tunable parameters (config fields or defaults).
+    ``source`` optionally registers a streaming variant (a ``SimConfig
+    -> JobSource`` factory over the same workload) for the stream
+    engine; scenarios without one still stream through
+    :func:`get_source`'s materialized fallback."""
     if kind not in _KINDS:
         raise ValueError(f"kind must be one of {_KINDS}, got {kind!r}")
 
@@ -68,7 +79,7 @@ def register_scenario(name: str, *, kind: str = SYNTHETIC,
                 "description=... or give the function a docstring)")
         _REGISTRY[name] = Scenario(
             name=name, fn=fn, kind=kind, description=desc,
-            knobs=tuple(sorted((knobs or {}).items())))
+            knobs=tuple(sorted((knobs or {}).items())), source=source)
         return fn
 
     return deco
@@ -98,10 +109,14 @@ def build(name: str, cfg: SimConfig) -> JobSet:
 
 
 def get_source(name: str, cfg: SimConfig):
-    """A scenario's job stream, for a streamed replay: the port has no
-    stream engine yet (ROADMAP.md, queue 1: stream engine)."""
-    get_scenario(name)
-    raise NotImplementedError(
-        f"scenario {name!r}: streamed replay needs the port's stream "
-        "engine, which is not ported yet (stream engine, ROADMAP.md); "
-        "build() gives the same jobs as one JobSet")
+    """JobSource of the named scenario (the stream engine's input).
+
+    Scenarios with a registered ``source`` stream without materializing
+    the workload (trace readers, chunked generators); the rest fall back
+    to a chunked view of the built JobSet: the same jobs, with O(n_jobs)
+    host memory during the build."""
+    sc = get_scenario(name)
+    if sc.source is None:
+        from repro_torch.core.stream.source import from_jobset
+        return from_jobset(sc.build(cfg))
+    return sc.source(cfg)

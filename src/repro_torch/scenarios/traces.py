@@ -318,6 +318,16 @@ def iter_trace_csv(path: str, cfg: SimConfig, dialect: str = "philly", *,
         yield emit()
 
 
+def trace_source(path: str, cfg: SimConfig, dialect: str = "philly",
+                 **kw) -> JobSource:
+    """:class:`JobSource` over :func:`iter_trace_csv` with the drop
+    accounting attached (``source.stats``) for one-pass consumers."""
+    stats = TraceStats()
+    return JobSource(
+        iter_trace_csv(path, cfg, dialect, stats=stats, **kw),
+        stats=stats)
+
+
 def tiled_trace_chunks(path: str, cfg: SimConfig, dialect: str = "philly",
                        *, repeats: Optional[int] = None, gap_min: int = 1,
                        te_runtime_min: float = 30.0,
@@ -356,7 +366,8 @@ def tiled_source(path: str, cfg: SimConfig, dialect: str = "philly",
     "philly-sample", kind=TRACE,
     knobs={"te_runtime_min": "TE/BE runtime threshold, minutes (30)",
            "time_scale": "arrival-gap compression factor (1.0)",
-           "statuses": "job outcomes to keep (all)"})
+           "statuses": "job outcomes to keep (all)"},
+    source=lambda cfg: trace_source(PHILLY_SAMPLE, cfg, "philly"))
 def philly_sample(cfg: SimConfig) -> JobSet:
     """Bundled Microsoft-Philly-style sample trace (fixtures/, no network)."""
     return load_philly_csv(PHILLY_SAMPLE, cfg)
@@ -366,7 +377,8 @@ def philly_sample(cfg: SimConfig) -> JobSet:
     "pai-sample", kind=TRACE,
     knobs={"te_runtime_min": "TE/BE runtime threshold, minutes (30)",
            "time_scale": "arrival-gap compression factor (1.0)",
-           "statuses": "task outcomes to keep (all)"})
+           "statuses": "task outcomes to keep (all)"},
+    source=lambda cfg: trace_source(PAI_SAMPLE, cfg, "pai"))
 def pai_sample(cfg: SimConfig) -> JobSet:
     """Bundled Alibaba-PAI-style sample trace (fixtures/, no network)."""
     return load_pai_csv(PAI_SAMPLE, cfg)
@@ -379,12 +391,15 @@ def _philly_tiled_source(cfg: SimConfig) -> JobSource:
 @register_scenario(
     "philly-tiled", kind=TRACE,
     knobs={"repeats": "fixture tilings (auto: reach workload.n_jobs)",
-           "gap_min": "idle gap between tiles, minutes (1)"})
+           "gap_min": "idle gap between tiles, minutes (1)"},
+    source=_philly_tiled_source)
 def philly_tiled(cfg: SimConfig) -> JobSet:
     """Philly sample tiled end-to-end to ~``workload.n_jobs`` jobs.
 
     The repeated-fixture long trace: a public-log-length workload from
-    the bundled few-KB fixture; this entry materializes the stream."""
+    the bundled few-KB fixture. It streams through ``core/stream`` in
+    bounded memory; this entry materializes the same stream for the
+    monolithic engines."""
     return materialize(_philly_tiled_source(cfg))
 
 
@@ -395,7 +410,8 @@ def _pai_tiled_source(cfg: SimConfig) -> JobSource:
 @register_scenario(
     "pai-tiled", kind=TRACE,
     knobs={"repeats": "fixture tilings (auto: reach workload.n_jobs)",
-           "gap_min": "idle gap between tiles, minutes (1)"})
+           "gap_min": "idle gap between tiles, minutes (1)"},
+    source=_pai_tiled_source)
 def pai_tiled(cfg: SimConfig) -> JobSet:
     """PAI sample tiled end-to-end to ~``workload.n_jobs`` jobs.
 

@@ -7,7 +7,8 @@ engine's (the header names the engine); ``sweep --device cpu`` prints
 the JAX sweep's table. The compared runs use lrtp, which draws nothing,
 so the two engines take the same decisions. ``run --trace`` writes the
 stream through the port's ``obs.export``, equal to the JAX CLI's CSV;
-``run --stream`` raises (no stream engine in the port)."""
+``run --stream`` prints the JAX CLI's streamed table, and ``describe``
+its one-pass stream statistics."""
 import pytest
 import torch
 
@@ -49,13 +50,23 @@ def test_describe_every_scenario(capsys):
         assert _knobs(got) == _knobs(want), name
 
 
+def _stream_stats(text):
+    return text[text.index("stream (one pass"):] \
+        if "stream (one pass" in text else ""
+
+
 def test_describe_without_stream_stats(capsys):
-    """A scenario with a streaming source: the port prints the JAX
-    CLI's description up to its one-pass stream statistics."""
-    want = _out(capsys, jcli.main, ["describe", "philly-sample"])
-    got = _out(capsys, tcli.main, ["describe", "philly-sample"])
-    assert "stream (one pass" in want and "stream" not in got
-    assert want.startswith(got)
+    """A scenario without a streaming source prints no stream
+    statistics, as the JAX CLI does; one with a source prints the JAX
+    CLI's one-pass statistics (drop counts included)."""
+    got = _out(capsys, tcli.main, ["describe", "burst-storm"])
+    assert _stream_stats(got) == "" == _stream_stats(
+        _out(capsys, jcli.main, ["describe", "burst-storm"]))
+    for argv in (["describe", "philly-sample"],
+                 ["describe", "stream-closed-loop", "--n-jobs", "300"]):
+        want = _stream_stats(_out(capsys, jcli.main, argv))
+        assert want and _stream_stats(_out(capsys, tcli.main, argv)) \
+            == want
 
 
 def test_run_reference_engine(capsys):
@@ -96,8 +107,27 @@ def test_default_device_is_the_card(monkeypatch, argv):
 
 
 def test_run_stream_raises():
-    with pytest.raises(NotImplementedError, match="stream engine"):
-        tcli.main(["run", "burst-storm", "--stream", "--device", "cpu"])
+    """The stream engine runs on the torch engine: ``--stream`` with
+    ``--engine reference`` is refused."""
+    with pytest.raises(SystemExit):
+        tcli.main(["run", "burst-storm", "--stream", "--engine",
+                   "reference"])
+
+
+@pytest.mark.parametrize("extra", [[], ["--closed-loop", "--capacity",
+                                        "160", "--mode", "tick"]])
+def test_run_stream_prints_the_jax_table(capsys, tmp_path, extra):
+    """``run --stream --device cpu`` against the JAX CLI's ``run
+    --stream``: the same header, table and counters, and the same
+    remapped trace as CSV."""
+    jpath, tpath = tmp_path / "jax.csv", tmp_path / "torch.csv"
+    argv = ["run", "philly-tiled", "--stream"] + SMALL + extra \
+        + ["--trace-format", "csv", "--trace"]
+    want = _out(capsys, jcli.main, argv + [str(jpath)])
+    got = _out(capsys, tcli.main, argv + [str(tpath), "--device", "cpu"])
+    assert got.replace(str(tpath), str(jpath)) == want
+    assert "engine=stream" in got and "events ->" in got
+    assert tpath.read_text() == jpath.read_text()
 
 
 @pytest.mark.parametrize("mode", ["event", "tick"])

@@ -9,6 +9,7 @@ import dataclasses
 import functools
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -234,3 +235,80 @@ def test_kernel_path_equals_plain_path_on_card(monkeypatch):
     monkeypatch.setattr(tops, "_FORCE_PLAIN", True)
     plain = sim_torch.state_to_numpy(sim_torch.run(tcfg, jobs, 3))
     assert sim_torch.state_diff_fields(kern, plain) == []
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_argmin_argmax_key_ties_match_jax(seed):
+    """``_argmin_key``/``_argmax_key`` with a permuted ``akey`` pick
+    what ``sim_jax``'s do (the smallest akey among tied extrema), and
+    without one the first extremum; rows of a batch reduce alone."""
+    rng = np.random.default_rng(seed)
+    for _ in range(20):
+        n = int(rng.integers(1, 40))
+        mask = rng.random(n) < 0.6
+        val = rng.integers(0, 3, n).astype(np.float32)
+        akey = rng.permutation(n).astype(np.float32)
+        for key in (None, akey):
+            jkey = None if key is None else jnp.asarray(key)
+            tkey = None if key is None else torch.from_numpy(key)
+            for tfn, jfn in ((sim_torch._argmin_key, sim_jax._argmin_key),
+                             (sim_torch._argmax_key, sim_jax._argmax_key)):
+                want = int(jfn(jnp.asarray(mask), jnp.asarray(val), jkey))
+                got = tfn(torch.from_numpy(mask), torch.from_numpy(val),
+                          tkey)
+                assert int(got) == want
+    masks = torch.from_numpy(rng.random((3, 16)) < 0.5)
+    vals = torch.from_numpy(rng.integers(0, 2, (3, 16)).astype(np.float32))
+    keys = torch.from_numpy(np.stack([rng.permutation(16)
+                                      for _ in range(3)]).astype(np.float32))
+    rows = sim_torch._argmin_key(masks, vals, keys)
+    assert rows.tolist() == [int(sim_torch._argmin_key(m, v, k))
+                             for m, v, k in zip(masks, vals, keys)]
+
+
+@pytest.mark.parametrize("policy,mode", [("fitgpp", "event"),
+                                         ("lrtp", "tick"),
+                                         ("srtp", "event")])
+def test_akey_in_index_order_leaves_the_engine_unchanged(policy, mode):
+    """``Jobs.akey`` equal to the row index runs the same engine as no
+    ``akey`` (the monolithic order), field for field."""
+    _, tcfg = configs(policy)
+    jobs = sim_torch.jobs_from_jobset(jobset(), "cpu")
+    keyed = dataclasses.replace(
+        jobs, akey=torch.arange(N_JOBS, dtype=torch.float32))
+    want = sim_torch.state_to_numpy(torch_run(policy, mode)[1])
+    got = sim_torch.state_to_numpy(sim_torch.run(tcfg, keyed, SEED,
+                                                 time_mode=mode))
+    assert sim_torch.state_diff_fields(want, got) == []
+
+
+@pytest.mark.parametrize("policy,mode", [("fitgpp", "event"),
+                                         ("lrtp", "tick"),
+                                         ("srtp", "event"),
+                                         ("fifo", "event")])
+def test_permuted_rows_with_akey_equal_the_ordered_run(policy, mode):
+    """Rows in any order with ``akey`` holding their arrival order give
+    the ordered run's State, row for row: the tie-breaks, arrival keys
+    and requeue ranks follow ``akey``, as on the stream engine's
+    recycled slots. (Preemptions happen here, so the victim and vacate
+    ties are exercised.)"""
+    _, tcfg = configs(policy)
+    js = jobset()
+    perm = np.random.default_rng(7).permutation(N_JOBS)
+    arrays = dict(submit=js.submit[perm], exec_total=js.exec_total[perm],
+                  demand=js.demand[perm], is_te=js.is_te[perm],
+                  gp=js.gp[perm], width=js.n_nodes[perm],
+                  akey=perm.astype(np.float32))
+    st = sim_torch.run(tcfg, sim_torch.jobs_from_numpy(arrays, "cpu"), SEED,
+                       time_mode=mode)
+    want = sim_torch.state_to_numpy(torch_run(policy, mode)[1])
+    got = sim_torch.state_to_numpy(st)
+    inv = np.argsort(perm)
+    assert want["preempt_count"].sum() > 0 or policy == "fifo"
+    for f in COMPARED:
+        x = got[f]
+        if x.ndim and x.shape[0] == N_JOBS:
+            x = x[inv]
+        if f == "victim_of":
+            x = np.where(x >= 0, perm[np.maximum(x, 0)], x)
+        np.testing.assert_array_equal(x, want[f], err_msg=f)

@@ -13,6 +13,7 @@ included. The port draws its random numbers from a torch generator, so
 the score policies' width-1 random fallback (a different stream in each
 engine) must not fire where a run is compared across engines: those
 cases assert it did not."""
+import dataclasses
 import functools
 
 import jax
@@ -208,6 +209,39 @@ def test_gang_select_matches_jax(form):
         seen["over_cap"] += sum(o for _, o in picks)
     print(seen)
     assert all(seen.values()), seen
+
+
+@pytest.mark.parametrize("form", ["score", "rank"])
+def test_gang_select_akey_ties_match_jax(form):
+    """Both forms with tied ranks (three values over all jobs) and a
+    permuted ``akey``: the port picks, in order, the victims the JAX
+    ``_gang_select`` signals (the smallest akey among tied ranks)."""
+    P = 2
+    differs = 0
+    for seed in range(24):
+        js, jobs, st, te = random_state(seed, P=P)
+        rng = np.random.default_rng(seed + 200)
+        akey = rng.permutation(len(js.submit)).astype(np.float32)
+        rank = rng.integers(0, 3, len(js.submit)).astype(np.float32)
+        score = jnp.asarray(-rank) if form == "score" else None
+        want = _jax_gang_select(st, jobs._replace(akey=jnp.asarray(akey)),
+                                jnp.int32(te), jnp.asarray(rank), P,
+                                score=score)
+        tj = dataclasses.replace(sim_torch.jobs_from_jobset(js, "cpu"),
+                                 akey=torch.from_numpy(akey))
+        tst = sim_torch.state_from_numpy(jax_numpy(st), 0, "cpu")
+        args = (tst, tj, te, int(js.n_nodes[te]), torch.from_numpy(rank), P)
+        tscore = None if score is None else torch.from_numpy(-rank)
+        picks = sim_torch._gang_select(*args, score=tscore)
+        differs += picks != sim_torch._gang_select(
+            *args[:1], dataclasses.replace(tj, akey=None), *args[2:],
+            score=tscore)
+        for v, over_cap in picks:
+            tst.fallback_count += int(over_cap)
+            sim_torch._signal_one(tst, tj, v, te, int(js.gp[v]))
+        assert_fields_equal(jax_numpy(want), sim_torch.state_to_numpy(tst),
+                            f"{form} seed {seed}")
+    assert differs > 0          # the ties changed some picks
 
 
 def argsort_would_act(be_q, fits, key, depth):

@@ -88,6 +88,16 @@ def test_module_walk_covers_the_sweep_layer():
             "repro_torch.scenarios.__main__"} <= names
 
 
+def test_module_walk_covers_the_stream_engine():
+    """The blocked-import walk reaches the stream engine, its closed-loop
+    admission and its sources."""
+    names = {m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                                   "repro_torch.")}
+    assert {"repro_torch.core.stream", "repro_torch.core.stream.engine",
+            "repro_torch.core.stream.admission",
+            "repro_torch.core.stream.source"} <= names
+
+
 def test_source_scan_finds_no_jax_or_repro_import():
     offenders = [f"{p.relative_to(ROOT)}: {m.group(0).strip()}"
                  for p in _sources()

@@ -458,9 +458,7 @@ def test_batched_engine_kernel_path_equals_plain_path(cuda_device, mode):
                for k in range(2)]
     table = sweep_fabric.build_table(jobsets * 2, np.float32([0, 0, 4, 4]), 1,
                                      np.uint32([0, 1, 0, 1]))
-    jobs = dataclasses.replace(table.jobs, **{
-        f.name: getattr(table.jobs, f.name).to(cuda_device)
-        for f in dataclasses.fields(table.jobs)})
+    jobs = table.jobs.map(lambda x: x.to(cuda_device))
     states = []
     for force in (False, True):
         tops._FORCE_PLAIN = force
@@ -482,3 +480,59 @@ def test_batched_engine_kernel_path_equals_plain_path(cuda_device, mode):
         sim_batch.uniforms(seed.to(cuda_device), count.to(cuda_device),
                            1000).cpu(),
         sim_batch.uniforms(seed, count, 1000), rtol=0, atol=0)
+
+
+def tie_args(J, M, device, seed):
+    """A one-row pass with many tied Eq. 3 scores (two demand rows, two
+    grace periods), free capacity that keeps most candidates Eq. 2
+    eligible, live cand and under masks, and ``akey`` a seeded
+    permutation, as the stream engine's pool passes it."""
+    args = sched_args(1, J, M, device, seed)
+    rng = np.random.default_rng(seed + 500)
+    rows = np.array([[4.0, 16.0, 1.0], [8.0, 32.0, 2.0]], np.float32)
+    args[0] = torch.from_numpy(rows[rng.integers(0, 2, J)][None]).to(device)
+    args[1] = torch.from_numpy(rng.choice(np.array([0.0, 4.0], np.float32),
+                                          J)[None]).to(device)
+    args[5] = torch.tensor([[[8.0, 64.0, 4.0]]], device=device) \
+        .expand(1, M, 3).contiguous()
+    args[12], args[13] = (x[None] for x in tops.normalizers(
+        args[0][0], args[1][0], args[7][0], args[11][0]))
+    akey = torch.from_numpy(rng.permutation(J).astype(np.float32)[None])
+    return args, akey.to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("J", [2688, 65536])
+def test_schedule_step_akey_kernel_matches_plain(cuda_device, J):
+    """With ``akey`` the kernel's victim is the plain version's (score,
+    akey, index) minimum, bit for bit with every other field; the tie
+    changes the victim from the one without ``akey``."""
+    args, akey = tie_args(J, 84, cuda_device, seed=J)
+    got = assert_pass_equal(args + [akey])
+    assert int(got.victim) != int(assert_pass_equal(args).victim)
+
+
+@pytest.mark.cuda
+def test_stream_engine_card_equals_cpu(cuda_device):
+    """The stream engine on the card (the kernel, with ``akey``) gives
+    the CPU plain path's per-job results and events."""
+    import dataclasses
+    from repro_torch import api
+    from repro_torch.core import stream, workload
+    cfg = api.make_config("fitgpp", n_jobs=400, n_nodes=8, seed=0)
+    cfg = dataclasses.replace(cfg, workload=dataclasses.replace(
+        cfg.workload, load=0.5))
+    out = {}
+    for dev in ("cpu", cuda_device):
+        before = tops.LAUNCHES["schedule_step"]
+        src = stream.JobSource(workload.stream_chunks(cfg, 400, chunk=64))
+        out[str(dev)] = stream.StreamEngine(cfg, src, capacity=96,
+                                            trace=True, device=dev).run()
+        launched = tops.LAUNCHES["schedule_step"] - before
+        assert (launched > 0) == (str(dev) != "cpu")
+    cpu, card = out["cpu"], out[str(cuda_device)]
+    assert cpu.rounds > 1 and card.fallback_count == cpu.fallback_count == 0
+    for f in ("finish", "preempt_count", "last_signal", "last_vacate",
+              "last_resume"):
+        assert np.array_equal(getattr(card, f), getattr(cpu, f)), f
+    assert card.events == cpu.events and card.makespan == cpu.makespan

@@ -196,8 +196,14 @@ def test_job_source_matches_jax():
 
 
 def test_get_source_waits_for_the_stream_engine():
+    """``get_source`` (no longer waiting: the stream engine is in)
+    streams what ``build`` materializes, through a registered source
+    (philly-tiled) or the materialized fallback (burst-storm), and
+    refuses unknown names."""
     tcfg = tcluster.SimConfig(workload=tcluster.WorkloadSpec(n_jobs=64))
-    with pytest.raises(NotImplementedError, match="stream engine"):
-        tscenarios.get_source("philly-tiled", tcfg)
+    for name in ("philly-tiled", "burst-storm"):
+        assert_jobsets_equal(
+            tsource.materialize(tscenarios.get_source(name, tcfg)),
+            tscenarios.build(name, tcfg), name)
     with pytest.raises(KeyError, match="registered"):
         tscenarios.get_source("no-such-scenario", tcfg)

@@ -249,6 +249,82 @@ def test_cpu_tensors_take_the_plain_version():
         tss.schedule_step_cuda(*torch_args(inst), 1.0, 1.0, 4.0)
 
 
+def tie_instance(J, M, seed):
+    """A tie-heavy pass: two demand rows and two grace periods, so the
+    Eq. 3 scores take four values over many candidates; free capacity
+    that keeps most candidates Eq. 2 eligible; live cand and under
+    masks; and ``akey`` a seeded permutation (the stream engine's
+    global arrival order over recycled slots)."""
+    inst = rand_instance(J, M, seed)
+    rng = np.random.default_rng(seed + 500)
+    rows = np.array([[4.0, 16.0, 1.0], [8.0, 32.0, 2.0]], np.float32)
+    inst["demand"] = rows[rng.integers(0, 2, J)]
+    inst["gp"] = rng.choice(np.array([0.0, 4.0], np.float32), J)
+    inst["free"] = np.tile(np.array([[8.0, 64.0, 4.0]], np.float32), (M, 1))
+    akey = rng.permutation(J).astype(np.float32)
+    return inst, akey
+
+
+def jax_akey_victim(inst, akey):
+    """The victim as the JAX engine's jnp score path picks it on a
+    stream pool: Eq. 3 scores from the jnp twin, Eq. 2 against each
+    candidate's best node, ``sim_jax._argmin_key`` with ``akey``."""
+    from repro.core import sim_jax
+    twin = jax_backends(inst, pallas=False)[0][0]
+    best, _ = sim_jax._best_victim_node(
+        jnp.asarray(inst["free"]), jnp.asarray(inst["assign"]),
+        jnp.asarray(inst["demand"]), jnp.asarray(inst["te_demand"]))
+    mask = jnp.asarray(inst["cand"] & inst["under"]) & (best >= -FIT_EPS)
+    v = sim_jax._argmin_key(mask, jnp.asarray(twin[0]), jnp.asarray(akey))
+    return int(v) if bool(mask.any()) else -1
+
+
+@pytest.mark.parametrize("J,M,seed", [(64, 8, 30), (300, 8, 31),
+                                      (513, 84, 32), (40, 3, 33)])
+def test_akey_victim_matches_jax_argmin_key(J, M, seed):
+    """With ``akey`` the victim is the (score, akey, index) minimum,
+    ``sim_jax._argmin_key``'s pick, on tie-heavy passes; every other
+    field is the pass without ``akey``."""
+    inst, akey = tie_instance(J, M, seed)
+    max_sz, max_gp = tops.normalizers(*(torch.as_tensor(inst[k]) for k in (
+        "demand", "gp", "cand", "node_cap")))
+    ps = tss.schedule_step_torch(*torch_args(inst), max_sz, max_gp, 4.0,
+                                 torch.from_numpy(akey))
+    plain = plain_pass(inst)
+    assert int(ps.victim) == jax_akey_victim(inst, akey)
+    assert int(ps.victim) != int(plain.victim)       # the tie mattered
+    for name in FIELDS:
+        if name != "victim":
+            assert torch.equal(getattr(ps, name), getattr(plain, name)), name
+
+
+def test_akey_in_index_order_is_no_akey():
+    """``akey`` equal to the row index gives the pass without it (the
+    monolithic order), through the ops wrapper too."""
+    inst, _ = tie_instance(200, 8, 34)
+    args = torch_args(inst)
+    want = tops.schedule_step(*args)
+    got = tops.schedule_step(*args, akey=torch.arange(200,
+                                                      dtype=torch.float32))
+    assert_pass_equal(got, [x.numpy() for x in want])
+
+
+def test_akey_batched_equals_rowwise():
+    insts = [tie_instance(96, 8, 40 + b) for b in range(3)]
+    norms = [tops.normalizers(*(torch.as_tensor(i[k]) for k in (
+        "demand", "gp", "cand", "node_cap"))) for i, _ in insts]
+    stacked = [torch.stack([torch.as_tensor(i[k]) for i, _ in insts])
+               for k in insts[0][0]]
+    akey = torch.stack([torch.from_numpy(a) for _, a in insts])
+    ps = tss.schedule_step_torch(
+        *stacked, torch.stack([n[0] for n in norms]),
+        torch.stack([n[1] for n in norms]), torch.full((3,), 4.0), akey)
+    for b, (inst, a) in enumerate(insts):
+        row = tss.schedule_step_torch(*torch_args(inst), norms[b][0],
+                                      norms[b][1], 4.0, torch.from_numpy(a))
+        assert_pass_equal([x[b] for x in ps], row)
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():

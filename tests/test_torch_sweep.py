@@ -178,8 +178,7 @@ def test_sensitivity_grid_matches_jax_shapes():
 
 
 def _permuted(table, perm):
-    jobs = sim_torch.Jobs(**{f.name: getattr(table.jobs, f.name)[perm]
-                             for f in dataclasses.fields(sim_torch.Jobs)})
+    jobs = table.jobs.map(lambda x: x[perm])
     return tfabric.TrialTable(jobs, table.s[perm], table.P[perm],
                               table.seed[perm], table.n_valid)
 
