@@ -13,12 +13,12 @@ two main paths through the entry points a user calls:
   backfill), then the paper's FIFO-vs-FitGpp comparison at the paper's
   scale (84 nodes, 2**16 jobs) through
   ``repro_torch.api.compare_policies``, then gang-heavy on the same 84
-  nodes (2**14 jobs) under fifo, fitgpp and fitgpp with backfill
+  nodes (2**13 jobs) under fifo, fitgpp and fitgpp with backfill
   through ``repro_torch.api.run_experiment``; then the host numpy
   reference engine (``engine="reference"``) on the paper's cell, the
   same-host baseline, held against the torch engine's results; then
   the torch engine traced on the same cell (its event ring; fifo at
-  2**15 jobs, fitgpp at 2**13), each stream validated, decomposed per
+  2**14 jobs, fitgpp at 2**13), each stream validated, decomposed per
   job and held against the reference engine's stream; then fitgpp on
   phase paper's 2**16 jobs through the stream engine
   (``repro_torch.core.stream.StreamEngine``: a pool of 2,688 job slots,
@@ -35,7 +35,19 @@ two main paths through the entry points a user calls:
   greedily (``repro_torch.launch.serve``); its logits are held against
   the plain path's full forward, then again in float32 at full width
   with 2 layers, and the smoke config's kernel path on the card against
-  the CPU plain path.
+  the CPU plain path;
+* dense training: stablelm-12b at its published widths with 2 layers
+  (bf16, f32 AdamW moments, remat "full") takes 4 steps of 4 x 2048
+  tokens through ``repro_torch.launch.train.train`` on attention's
+  plain path (no kernel: the flash kernel has no backward, and its
+  wrapper refuses an input that requires grad); the state is saved
+  after step 2 (``repro_torch.checkpoint``), restored, and steps 3-4
+  replayed bit for bit; then the smoke config's steps on the card
+  against the CPU's;
+* the live controller (``repro_torch.core.controller``): real train
+  jobs of the dense smoke config preempted by FitGpp, flushed and
+  resumed, their losses bit-equal to an uninterrupted run, and every
+  event log equal to the same specs' run on the CPU.
 
 Each main path runs with every launch count set to 0 just before it and
 read just after. Prints one JSON line per phase, then a
@@ -52,6 +64,7 @@ import argparse
 import dataclasses
 import gc
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -91,14 +104,16 @@ KERNEL_MANY_NODES_TIMED = (1, 1024, 8192)
 GANG_SCENARIOS = ("gang-heavy", "gang-trace-mix", "philly-sample",
                   "pai-sample")
 GANG_ENGINE_JOBS = 384
-# phase gang: the paper's 84 nodes with a quarter of its backlog; at
+# phase gang: the paper's 84 nodes with an eighth of its backlog; at
 # 2**16 jobs the whole script took 902 s of its 1200 s limit on a slow
-# host, and with phases sweep_engine and sweep 1370.8 s at 2**15
-GANG_JOBS = 2 ** 14
+# host, and with phases sweep_engine and sweep 1370.8 s at 2**15; cut
+# from 2**14 to pay for phases train and controller
+GANG_JOBS = 2 ** 13
 # phase trace's runs (and the reference engine's traced runs they are
-# held against): fifo cut to 2**15 for the script's limit; fitgpp at
-# 2**13, its traced run at the paper's 2**16 being phase stream's
-TRACE_JOBS = {"fifo": 2 ** 15, "fitgpp": 2 ** 13}
+# held against): fifo cut to 2**15 for the script's limit, and to 2**14
+# to pay for phases train and controller; fitgpp at 2**13, its traced
+# run at the paper's 2**16 being phase stream's
+TRACE_JOBS = {"fifo": 2 ** 14, "fitgpp": 2 ** 13}
 # phase stream: fitgpp on phase paper's JobSet through the stream engine,
 # its pool stream.default_capacity at 84 nodes and P = 1 (32 slots a
 # node), doubled if it spills
@@ -128,9 +143,10 @@ KERNEL_SWEEP_SHAPES = [(len(SWEEP_S) * w, SWEEP_JOBS, PAPER_NODES)
                        for w in (8, SWEEP_WORKLOADS)]
 # phase sweep_engine: the JAX sweep selftest's grid (burst-storm, 8
 # nodes, 64 jobs, 3 seeds x s in {0, 2, 4}, P = 1) padded with one
-# sentinel trial, and gang-heavy with backfill at 84 nodes
+# sentinel trial, and gang-heavy with backfill at 84 nodes (2 seeds, cut
+# from 4 to pay for phases train and controller)
 SWEEP_ENGINE_GRID = ("burst-storm", 8, 64, 3, (0.0, 2.0, 4.0))
-SWEEP_ENGINE_GANG = ("gang-heavy", PAPER_NODES, GANG_ENGINE_JOBS, 4, (4.0,))
+SWEEP_ENGINE_GANG = ("gang-heavy", PAPER_NODES, GANG_ENGINE_JOBS, 2, (4.0,))
 # flash attention: the JAX suite's shapes (tests/test_kernels.py) and
 # more, each in f32 and bf16, (B, Sq, Skv, H, KV, hd, causal, window, softcap)
 FLASH_SHAPES = [
@@ -912,7 +928,7 @@ def check_decomposition(events, finish, exec_total, n_jobs, where):
 
 
 def phase_trace(torch, np, runs):
-    """The torch engine traced on the paper's cell under fifo (2**15
+    """The torch engine traced on the paper's cell under fifo (2**14
     jobs) and fitgpp (2**13, TRACE_JOBS; its traced run at 2**16 is
     phase stream's), event mode, the default ring capacity, through
     ``api.run_experiment(trace=True)``: no overflow, a valid stream,
@@ -1204,7 +1220,7 @@ def phase_sweep_engine(torch, np):
     card, bit for bit on every State field: the JAX sweep selftest's
     grid (burst-storm, 8 nodes, 64 jobs, 3 seeds x s in {0, 2, 4},
     P = 1, one sentinel trial) under every policy in event and tick
-    mode; gang-heavy with backfill at 84 nodes, 384 jobs, 4 seeds, under
+    mode; gang-heavy with backfill at 84 nodes, 384 jobs, 2 seeds, under
     every policy in event mode. Each lane that no draw decided is held
     against sim_torch.run on its trial (non-RAND policies)."""
     from repro_torch.core import sweep_fabric
@@ -2508,10 +2524,309 @@ def phase_serve_family_card_vs_cpu(torch, arch, prompt_len=80):
           f"CPU plain path by {max_rel} (tolerance {CARD_VS_CPU_TOL})")
 
 
+# Training: stablelm-12b at its published widths, depth cut to 2 layers
+# (bf16 parameters, f32 AdamW moments, remat "full"), 4 x 2048 tokens a
+# step from make_batch, 4 steps of launch.train.train (its schedule:
+# warmup 1, cosine to 0 at step 4); the state saved after step 2 and
+# restored, steps 3-4 replayed bit for bit.
+TRAIN_ARCH = SERVE_ARCH
+TRAIN_LAYERS = 2
+TRAIN_BATCH, TRAIN_SEQ = 4, 2048
+# lr 3e-5: AdamW's first step moves every weight by about the learning
+# rate in its gradient's sign, and at full width with the JAX init (wq's
+# scale 1.7e-3: its fan-in counts the layer axis) a larger rate swamps
+# the weights; on the H100 the loss rose at lr 1e-3 (12.03 -> 24.48 ->
+# 12.10 -> 13.68, eval 12.02 -> 13.78) and at 1e-4 (12.03 -> 18.85 ->
+# 13.20 -> 11.90, eval 12.02 -> 12.11)
+TRAIN_STEPS, TRAIN_SAVE_AFTER, TRAIN_LR = 4, 2, 3e-5
+# the smoke config's train steps, card against CPU (f32, TF32 off): the
+# losses within 1e-4 relative (the order of sums differs)
+TRAIN_CARD_VS_CPU_TOL = 1e-4
+# the H100's dense bf16 peak (NVIDIA's data sheet, SXM, 700 W) and the
+# storage rate estimate_grace_period assumes
+PEAK_BF16_FLOPS = 989e12
+ASSUMED_STORAGE_BPS = 2e9
+
+def kernel_refuses_grad(torch):
+    """Whether ``ops.flash_attention`` raises on a CUDA query that
+    requires grad (the kernel has no backward), launching nothing."""
+    from repro_torch.kernels import ops
+    q = torch.randn(1, 128, 4, 32, device="cuda", requires_grad=True)
+    k = torch.randn(1, 128, 2, 32, device="cuda")
+    before = ops.LAUNCHES["flash_attention"]
+    try:
+        ops.flash_attention(q, k, k)
+    except RuntimeError as e:
+        return "no backward" in str(e) and \
+            ops.LAUNCHES["flash_attention"] == before
+    return False
+
+
+def phase_train(torch):
+    """The training main path: stablelm-12b at full width, 2 layers,
+    through ``launch.train.train`` (attention's plain path, no kernel),
+    with a checkpoint after step 2 restored and steps 3-4 replayed."""
+    import shutil
+    from repro_torch import models, trainer
+    from repro_torch.checkpoint import (estimate_grace_period, load_pytree,
+                                        save_pytree, state_bytes)
+    from repro_torch.configs import get_config
+    from repro_torch.data import make_eval_batch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as launch_train
+    cfg = get_config(TRAIN_ARCH).replace(n_layers=TRAIN_LAYERS)
+    check(cfg.dtype == "bfloat16" and cfg.remat == "full",
+          f"unexpected training config {cfg.dtype}, remat {cfg.remat}")
+    refuses = kernel_refuses_grad(torch)
+    check(refuses, "ops.flash_attention took a CUDA input that requires "
+          "grad")
+    ocfg = launch_train.opt_config(TRAIN_STEPS, TRAIN_LR)
+    free_cuda(torch)
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    ckpt = os.path.join(tmp, "step2.npz")
+    io = {}
+
+    def save_after(i, state, metrics):
+        if i == TRAIN_SAVE_AFTER - 1:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            io["bytes"] = save_pytree(state, ckpt)
+            io["write_s"] = time.perf_counter() - t0
+
+    kw = dict(steps=TRAIN_STEPS, batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+              lr=TRAIN_LR, seed=0, device="cuda", log=None)
+    try:
+        t0 = time.perf_counter()
+        state = trainer.init_train_state(cfg, ocfg, 0, device="cuda")
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        sbytes = state_bytes(state)
+        grace = estimate_grace_period(
+            state, storage_bw_bytes_per_s=ASSUMED_STORAGE_BPS)
+        ev = make_eval_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, device="cuda")
+        with torch.no_grad():
+            eval_before = float(models.loss_fn(cfg, state["params"], ev))
+        res = launch_train.train(cfg, state=state, on_step=save_after, **kw)
+        with torch.no_grad():
+            eval_after = float(models.loss_fn(cfg, res.state["params"], ev))
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        final = {n: p.detach().clone()
+                 for n, p in res.state["params"].named_parameters()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state = load_pytree(res.state, ckpt)
+        torch.cuda.synchronize()
+        read_s = time.perf_counter() - t0
+        restored_step = int(state["opt"]["step"])
+        replay = launch_train.train(cfg, state=state,
+                                    start=TRAIN_SAVE_AFTER, **kw)
+        params_equal = all(
+            torch.equal(p, final[n])
+            for n, p in replay.state["params"].named_parameters())
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    launches = dict(ops.LAUNCHES)
+    losses, step_s, replayed = res.losses, res.step_s, replay.losses
+    resume_equal = replayed == losses[TRAIN_SAVE_AFTER:] and params_equal
+    del state, res, replay, final
+    free_cuda(torch)
+    n_params = models.count_params(cfg)
+    counted = n_params - cfg.vocab * cfg.d_model      # all but the embedding
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    # the first step pays for the allocator's and cuBLAS's warm-up
+    s_per_step = statistics.mean(step_s[1:])
+    emit({"phase": "train", "arch": TRAIN_ARCH, "layers": cfg.n_layers,
+          "dtype": cfg.dtype, "moments": ocfg.moment_dtype,
+          "remat": cfg.remat, "batch": TRAIN_BATCH, "seq_len": TRAIN_SEQ,
+          "steps": TRAIN_STEPS, "lr": TRAIN_LR,
+          "warmup_steps": ocfg.warmup_steps, "params": n_params,
+          "init_s": init_s, "losses": losses, "replayed_losses": replayed,
+          "step_s": step_s, "s_per_step": s_per_step,
+          "tokens_per_s": tokens / s_per_step,
+          "step_tflops": 6 * counted * tokens / s_per_step / 1e12,
+          "peak_tflops": PEAK_BF16_FLOPS / 1e12,
+          "eval_loss_before": eval_before, "eval_loss_after": eval_after,
+          "peak_device_gb": peak_gb, "state_gb": sbytes / 1e9,
+          "ckpt_gb": io["bytes"] / 1e9, "ckpt_write_s": io["write_s"],
+          "ckpt_write_gbps": io["bytes"] / io["write_s"] / 1e9,
+          "ckpt_read_s": read_s,
+          "ckpt_read_gbps": io["bytes"] / read_s / 1e9,
+          "assumed_gbps": ASSUMED_STORAGE_BPS / 1e9,
+          "grace_period_min": grace, "restored_step": restored_step,
+          "resume_bit_equal": resume_equal, "launches": launches,
+          "kernel_refuses_grad": refuses})
+    check(all(math.isfinite(x) for x in losses),
+          f"non-finite training loss in {losses}")
+    check(eval_after < eval_before, f"the eval loss did not drop: "
+          f"{eval_before} -> {eval_after}")
+    check(restored_step == TRAIN_SAVE_AFTER,
+          f"the checkpoint restored step {restored_step}")
+    check(resume_equal, "steps 3-4 replayed from the checkpoint differ "
+          "from the uninterrupted run")
+    check(not any(launches.values()),
+          f"the train path launched kernels: {launches}")
+
+
+def phase_train_card_vs_cpu(torch):
+    """The smoke config's train steps on the card against the same steps
+    on the CPU: float32 (TF32 off), the same initial parameters and
+    tokens; each step's loss within TRAIN_CARD_VS_CPU_TOL relative."""
+    from repro_torch import trainer
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data import make_batch
+    from repro_torch.optim import AdamWConfig, adamw_init
+    cfg = get_smoke_config(TRAIN_ARCH).replace(dtype="float32")
+    ocfg = AdamWConfig(lr=TRAIN_LR, warmup_steps=1, total_steps=10)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    losses = {}
+    try:
+        for dev in ("cuda", "cpu"):
+            model = trainer.init_train_state(cfg, ocfg, 0,
+                                             device="cpu")["params"].to(dev)
+            state = {"params": model, "opt": adamw_init(model, ocfg)}
+            step, losses[dev] = trainer.make_train_step(cfg, ocfg), []
+            for i in range(2):
+                toks = make_batch(cfg, 4, 64, 0, i, device="cpu")["tokens"]
+                state, m = step(state, {"tokens": toks.to(dev)})
+                losses[dev].append(float(m["loss"]))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    max_rel = max(abs(a - b) / abs(b)
+                  for a, b in zip(losses["cuda"], losses["cpu"]))
+    emit({"phase": "train_card_vs_cpu", "arch": cfg.name,
+          "dtype": "float32", "allow_tf32": False, "losses": losses,
+          "loss_max_rel_err": max_rel, "tolerance": TRAIN_CARD_VS_CPU_TOL})
+    check(max_rel <= TRAIN_CARD_VS_CPU_TOL, f"the card's train step differs "
+          f"from the CPU's by {max_rel} (tolerance {TRAIN_CARD_VS_CPU_TOL})")
+
+
+# the live controller: the JAX package's controller cases with the
+# dense smoke config (bf16) in place of the vlm and ssm ones it trains
+CONTROLLER_ARCH = TRAIN_ARCH
+CONTROLLER_NODE = (32.0, 256.0, 8.0)
+
+
+def controller_case(np, ctl_mod, cfg, case, policy, device, workdir):
+    """One controller run: ``be_te`` (one node; BE be0 for 16 steps,
+    demand (8, 32, 8); TE te0 for 2 steps, demand (4, 16, 8), at tick 2;
+    grace periods estimated from the live state) or ``fleet`` (like
+    ``examples/preemptible_training.py``: 2 nodes, s = 4, BE jobs with
+    grace periods of 5 and 1 ticks, a TE at tick 1 and another, with an
+    estimated grace period, at tick 6). Returns the controller."""
+    np = __import__("numpy")
+    spec = ctl_mod.JobSpec
+    if case == "be_te":
+        ctl = ctl_mod.Controller(n_nodes=1, node_cap=CONTROLLER_NODE,
+                                 policy=policy, steps_per_tick=2,
+                                 workdir=workdir, device=device)
+        ctl.submit(spec("be0", cfg, False, np.array([8., 32., 8.]),
+                        total_steps=16))
+        ctl.submit(spec("te0", cfg, True, np.array([4., 16., 8.]),
+                        total_steps=2, submit_tick=2))
+    else:
+        ctl = ctl_mod.Controller(n_nodes=2, node_cap=CONTROLLER_NODE,
+                                 policy=policy, s=4.0, steps_per_tick=2,
+                                 workdir=workdir, device=device)
+        for name, gp in (("be_long_gp", 5), ("be_short_gp", 1)):
+            ctl.submit(spec(name, cfg, False, np.array([8., 32., 8.]),
+                            total_steps=12, gp_ticks=gp))
+        ctl.submit(spec("te", cfg, True, np.array([4., 16., 4.]),
+                        total_steps=2, submit_tick=1))
+        ctl.submit(spec("te2", cfg, True, np.array([4., 16., 8.]),
+                        total_steps=2, submit_tick=6))
+    t0 = time.perf_counter()
+    ctl.run()
+    ctl.wall_s = time.perf_counter() - t0
+    return ctl
+
+
+def phase_controller(torch, np):
+    """The live controller on the card: real train jobs preempted and
+    resumed through checkpoints; be0's losses across its preemption
+    against its uninterrupted run, the TE's slowdown under fitgpp and
+    fifo, the fleet's victim, and every event log against the same
+    specs' run on the CPU."""
+    import shutil
+    from repro_torch import trainer
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core import controller as ctl_mod
+    from repro_torch.data import make_batch
+    from repro_torch.kernels import ops
+    cfg = get_smoke_config(CONTROLLER_ARCH)
+    runs = (("be_te", "fitgpp"), ("be_te", "fifo"), ("fleet", "fitgpp"))
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ctl_")
+    zero_launches()
+    out = {}
+    try:
+        for dev in ("cuda", "cpu"):
+            for case, policy in runs:
+                out[dev, case, policy] = controller_case(
+                    np, ctl_mod, cfg, case, policy, dev,
+                    os.path.join(tmp, f"{dev}-{case}-{policy}"))
+        launches = dict(ops.LAUNCHES)
+        ctl = out["cuda", "be_te", "fitgpp"]
+        be = ctl.jobs[0]
+        st = trainer.init_train_state(cfg, be.spec.opt,
+                                      ctl_mod.job_seed("be0"), device="cuda")
+        step, base = trainer.make_train_step(cfg, be.spec.opt), []
+        for i in range(be.spec.total_steps):
+            st, m = step(st, make_batch(cfg, be.spec.batch, be.spec.seq_len,
+                                        seed=1, step=i, device="cuda"))
+            base.append(float(m["loss"]))
+        del st
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    def log(c):
+        return [{k: v for k, v in e.items() if k != "ckpt"}
+                for e in c.events]
+
+    def summary(c):
+        return {"events": log(c), "wall_s": c.wall_s,
+                "slowdown": {j.spec.name: c.slowdown(j) for j in c.jobs},
+                "preempt_count": {j.spec.name: j.preempt_count
+                                  for j in c.jobs},
+                "flush_s": {j.spec.name: j.flush_s for j in c.jobs
+                            if j.flush_s}}
+
+    fleet = out["cuda", "fleet", "fitgpp"]
+    te_fitgpp = out["cuda", "be_te", "fitgpp"].jobs[1]
+    te_fifo = out["cuda", "be_te", "fifo"].jobs[1]
+    sd_fitgpp = out["cuda", "be_te", "fitgpp"].slowdown(te_fitgpp)
+    sd_fifo = out["cuda", "be_te", "fifo"].slowdown(te_fifo)
+    first_victim = next((e["job"] for e in fleet.events
+                         if e["ev"] == "preempt"), None)
+    same_log = {f"{case}/{policy}": log(out["cuda", case, policy])
+                == log(out["cpu", case, policy]) for case, policy in runs}
+    emit({"phase": "controller", "arch": cfg.name, "dtype": cfg.dtype,
+          "runs": {f"{case}/{policy}": summary(out["cuda", case, policy])
+                   for case, policy in runs},
+          "cpu_wall_s": {f"{case}/{policy}": out["cpu", case, policy].wall_s
+                         for case, policy in runs},
+          "be0_preempt_count": be.preempt_count,
+          "be0_losses_bit_equal": be.losses == base,
+          "te_slowdown": {"fitgpp": sd_fitgpp, "fifo": sd_fifo},
+          "fleet_first_victim": first_victim,
+          "event_log_equals_cpu": same_log, "launches": launches})
+    check(be.preempt_count == 1, f"be0 preempted {be.preempt_count} times")
+    check(be.losses == base, "be0's losses across its preemption differ "
+          "from its uninterrupted run")
+    check(sd_fitgpp < sd_fifo, f"TE slowdown under fitgpp {sd_fitgpp} is "
+          f"not below fifo's {sd_fifo}")
+    check(first_victim == "be_short_gp" and
+          fleet.jobs[0].preempt_count == 0,
+          f"the fleet's victim was {first_victim}, not the short-GP job")
+    check(all(same_log.values()), f"event logs differ from the CPU's: "
+          f"{same_log}")
+
+
 PHASES = ("build", "kernel", "flash_kernel", "ssd_kernel", "lru_kernel",
           "engine", "sweep_engine", "paper", "gang", "reference", "trace",
           "stream", "sweep", "serve", "serve_f32", "serve_card_vs_cpu",
-          "serve_ssm", "serve_hybrid")
+          "serve_ssm", "serve_hybrid", "train", "controller")
 # run only when named in --phases
 EXTRA_PHASES = ("sweep_b1",)
 
@@ -2587,6 +2902,11 @@ def main(argv=None) -> int:
                 launches.setdefault(name, {})[path] = n
             phase_serve_family_f32(torch, arch)
             phase_serve_family_card_vs_cpu(torch, arch)
+        if "train" in phases:
+            phase_train(torch)
+            phase_train_card_vs_cpu(torch)
+        if "controller" in phases:
+            phase_controller(torch, np)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -38,3 +38,9 @@ def make_batch(cfg: ModelConfig, batch: int, seq_len: int, seed: int,
     state = np.random.SeedSequence([seed, step]).generate_state(1)[0]
     gen.manual_seed(int(state))
     return {"tokens": _zipf_tokens(gen, (batch, seq_len), cfg.vocab, dev)}
+
+
+def make_eval_batch(cfg: ModelConfig, batch: int, seq_len: int,
+                    seed: int = 1234, *, device=None) -> dict:
+    """A fixed held-out batch: batch 0 of ``seed``."""
+    return make_batch(cfg, batch, seq_len, seed, step=0, device=device)

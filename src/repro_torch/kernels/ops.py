@@ -2,7 +2,9 @@
 
 Dispatch is by device: a CUDA tensor goes to the hand-written kernel,
 a CPU tensor to its plain PyTorch version. There is no fallback from
-the kernel to the plain version.
+the kernel to the plain version. The flash, SSD and LRU kernels have no
+backward: on a CUDA input that requires grad, with grad mode on, their
+wrappers raise.
 
 ``LAUNCHES`` counts kernel launches per kernel name, one dict over all
 kernels (a plain integer each, raised by each CUDA wrapper once its
@@ -42,6 +44,19 @@ def normalizers(demand, gp, cand, node_cap):
     max_sz = torch.where(cand, sz, 0.0).amax(-1).clamp(min=1e-12)
     max_gp = torch.where(cand, gp.float(), 0.0).amax(-1).clamp(min=1e-12)
     return max_sz, max_gp
+
+
+def _refuse_grad(name: str, *tensors) -> None:
+    """A CUDA kernel has no backward: its output would carry no
+    ``grad_fn``, and a loss through a residual stream would quietly give
+    the inputs' parameters no gradient. So a call that autograd would
+    record raises instead (training takes the plain path by route)."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"the {name} kernel has no backward: an input requires grad "
+            f"with grad mode on (train through the plain path, or call "
+            f"under torch.no_grad())")
 
 
 def schedule_step(demand, gp, width, queue_key, assign, free,
@@ -89,6 +104,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     if q.device.type != "cuda":
         return _fa.flash_attention_torch(q, k, v, causal=causal,
                                          window=window, softcap=softcap)
+    _refuse_grad("flash_attention", q, k, v)
     return _fa.flash_attention_cuda(q, k, v, causal=causal, window=window,
                                     softcap=softcap)
 
@@ -100,6 +116,7 @@ def ssd_chunk(xdt, loga, Bm, Cm):
     wrapper, L need not be a multiple of Q (the last chunk is shorter)."""
     if xdt.device.type != "cuda" or _FORCE_PLAIN:
         return _sc.ssd_chunk_torch(xdt, loga, Bm, Cm)
+    _refuse_grad("ssd_chunk", xdt, loga, Bm, Cm)
     return _sc.ssd_chunk_cuda(xdt, loga, Bm, Cm)
 
 
@@ -110,4 +127,5 @@ def lru_scan(a, b, h0=None):
     the JAX wrapper pads them with a = 1, b = 0."""
     if a.device.type != "cuda" or _FORCE_PLAIN:
         return _ls.lru_scan_torch(a, b, h0)
+    _refuse_grad("lru_scan", a, b, h0)
     return _ls.lru_scan_cuda(a, b, h0)

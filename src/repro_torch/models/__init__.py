@@ -1,8 +1,9 @@
 """Model registry: family -> module (counterpart of ``repro.models``).
 
-The port runs the dense, ssm and hybrid families so far. Every other
-family raises ``NotImplementedError`` naming the ROADMAP item that
-brings it (``configs.base.UNPORTED_FAMILIES``). The functions take the
+The port runs the dense, ssm and hybrid families so far, and trains
+the dense family (:func:`loss_fn`). Every other family raises
+``NotImplementedError`` naming the ROADMAP item that brings it
+(``configs.base.UNPORTED_FAMILIES``). The functions take the
 model module where the JAX package takes its parameter tree.
 """
 from __future__ import annotations
@@ -35,6 +36,23 @@ def count_params(cfg: ModelConfig) -> int:
 
 def forward(cfg: ModelConfig, params, batch):
     return get_module(cfg).forward(cfg, params, batch["tokens"])
+
+
+# families whose loss the port can differentiate on the card
+_TRAINED_FAMILIES = ("dense",)
+
+
+def loss_fn(cfg: ModelConfig, params, batch):
+    """Mean next-token CE of ``batch`` (float32, 0-d, differentiable).
+    The dense family only: the ssm and hybrid forwards run the
+    ``ssd_chunk`` and ``lru_scan`` kernels, which have no backward."""
+    module = get_module(cfg)
+    if cfg.family not in _TRAINED_FAMILIES:
+        raise NotImplementedError(
+            f"loss_fn of the {cfg.family!r} family is not ported yet: it "
+            f"comes with training for the ssm and hybrid families "
+            f"(ROADMAP.md, queue 1)")
+    return module.loss_fn(cfg, params, batch)
 
 
 def prefill(cfg: ModelConfig, params, batch, pad_to: int = 0):

@@ -137,3 +137,17 @@ def softcap(logits: torch.Tensor, cap: float) -> torch.Tensor:
     if cap <= 0:
         return logits
     return cap * torch.tanh(logits / cap)
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean next-token CE in float32. logits (..., V); labels int; ``mask``
+    (labels' shape) weights each position, the mean taken over its sum."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, labels.long()[..., None])[..., 0]
+    nll = logz - gold
+    if mask is not None:
+        mask = mask.float()
+        return (nll * mask).sum() / mask.sum().clamp(min=1.0)
+    return nll.mean()

@@ -5,7 +5,8 @@ model (``repro.models.init``'s nested dict, leaves as numpy arrays, the
 per-layer leaves stacked on a leading layer axis: ``layers`` for the
 dense and ssm families, ``rec`` and ``attn`` for the hybrid) and
 returns the port's module holding the same values, each stacked leaf
-split into its layers.
+split into its layers. :func:`train_state_from_numpy` does the same
+for a whole train state, the AdamW moments and step included.
 """
 from __future__ import annotations
 
@@ -14,17 +15,20 @@ import torch
 
 from repro_torch import device as _device
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import dense, hybrid, ssm
+from repro_torch.models import common, dense, hybrid, ssm
 
 _MODELS = {"dense": (dense.DenseLM, dense.param_defs),
            "ssm": (ssm.MambaLM, ssm.param_defs),
            "hybrid": (hybrid.HybridLM, hybrid.param_defs)}
 
 
-def to_tensor(a: np.ndarray) -> torch.Tensor:
+def to_tensor(a) -> torch.Tensor:
     """A numpy array as a CPU tensor of the same type. A bfloat16 array
     (ml_dtypes' numpy type, which ``torch.from_numpy`` rejects) goes
-    through its 16-bit pattern."""
+    through its 16-bit pattern. A tensor (``checkpoint.load_tree``'s
+    leaves) passes through."""
+    if isinstance(a, torch.Tensor):
+        return a
     a = np.ascontiguousarray(a)
     if not a.flags.writeable:          # torch warns on read-only memory
         a = a.copy()
@@ -76,3 +80,31 @@ def params_from_numpy(cfg: ModelConfig, tree: dict, device):
         else:
             put(model.leaf(name), to_tensor(a), name)
     return model
+
+
+@torch.no_grad()
+def train_state_from_numpy(cfg: ModelConfig, tree: dict, device) -> dict:
+    """The port's train state (``trainer.init_train_state``'s layout) on
+    ``device`` from the JAX package's: ``{"params", "opt": {"m", "v",
+    "step"}}`` with numpy leaves (or tensors), m and v shaped like the
+    parameters and split into layers the same way. The moments keep
+    their own type (``moment_dtype``); the parameters require grad."""
+    model = params_from_numpy(cfg, tree["params"], device)
+    model.requires_grad_(True)
+    names = {v: k for k, v in common.DTYPES.items()}
+
+    def moments(mt: dict) -> dict:
+        # a module of the moments' type holds them, split and checked as
+        # the parameters are, under the parameters' names
+        first = next(iter(mt.values()))
+        first = next(iter(first.values())) if isinstance(first, dict) \
+            else first
+        dtype = names[to_tensor(first).dtype]
+        held = params_from_numpy(cfg.replace(dtype=dtype), mt, device)
+        return {n: p.detach() for n, p in held.named_parameters()}
+
+    opt = tree["opt"]
+    step = to_tensor(np.asarray(opt["step"])).to(torch.int32)
+    return {"params": model,
+            "opt": {"m": moments(opt["m"]), "v": moments(opt["v"]),
+                    "step": step.to(next(model.parameters()).device)}}

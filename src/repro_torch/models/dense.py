@@ -10,16 +10,22 @@ The functions take the module where the JAX ones take the parameter
 tree.
 
 Not ported: the sharding ``constrain`` calls (they do nothing on one
-card), and ``loss_fn``/``_maybe_remat``, which come with the training
-slice. The parameters carry no gradients; serving runs under
-``torch.no_grad``.
+card). The parameters are made without gradients and serving runs
+under ``torch.no_grad``; ``trainer.init_train_state`` turns gradients
+on. Training (:func:`loss_fn`) takes a route of its own through
+:func:`hidden` (``train=True``): ``attend``'s plain path, as the JAX
+package trains through its jnp ``attend`` (the flash kernel has no
+backward), and each layer under ``cfg.remat`` (:func:`_maybe_remat`).
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
+from torch.utils import checkpoint as _ckpt
 
 from repro_torch import device as _device
 from repro_torch.configs.base import ModelConfig
@@ -104,16 +110,20 @@ class DenseAttention(_Leaves):
         return o.reshape(B, S, -1) @ self.wo.reshape(-1, self.cfg.d_model)
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor,
-                mask: torch.Tensor, window: Optional[int] = None
+                mask: torch.Tensor, window: Optional[int] = None, *,
+                kernel: bool = True
                 ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
         """Full-sequence attention. x (B, S, D). Returns (out, (k, v));
-        ``window`` defaults to ``cfg.window``."""
+        ``window`` defaults to ``cfg.window``. ``kernel=False`` leaves
+        out ``attend``'s kernel hints, so attention takes its plain
+        (differentiable) path on any device: the training route."""
         cfg = self.cfg
         window = cfg.window if window is None else window
         q, k, v = self._qkv(x)
         q = common.rope(q, positions, cfg.rope_theta)
         k = common.rope(k, positions, cfg.rope_theta)
-        o = attention.attend(q, k, v, mask=mask, causal=True, window=window)
+        hints = {"causal": True, "window": window} if kernel else {}
+        o = attention.attend(q, k, v, mask=mask, **hints)
         return self._out(o), (k, v)
 
     def decode(self, x: torch.Tensor, k_cache: torch.Tensor,
@@ -154,8 +164,8 @@ class DenseLayer(nn.Module):
         self.attn = DenseAttention(cfg, dtype, device)
         self.mlp = DenseMLP(cfg, dtype, device)
 
-    def forward(self, x, positions, mask):
-        a, kv = self.attn(x, positions, mask)
+    def forward(self, x, positions, mask, *, kernel: bool = True):
+        a, kv = self.attn(x, positions, mask, kernel=kernel)
         x = x + a
         return x + self.mlp(x), kv
 
@@ -221,7 +231,11 @@ def init_leaves(model: nn.Module, defs: dict, seed: int,
 
 def embed(cfg: ModelConfig, model: nn.Module,
           tokens: torch.Tensor) -> torch.Tensor:
-    return model.top.embed[tokens].to(common.torch_dtype(cfg.dtype))
+    # F.embedding rather than indexing: its CUDA backward sums each
+    # row's gradient in a fixed order, where the index backward
+    # accumulates with atomics (a train step must repeat bit for bit)
+    return F.embedding(tokens.long(), model.top.embed).to(
+        common.torch_dtype(cfg.dtype))
 
 
 def unembed(cfg: ModelConfig, model: nn.Module,
@@ -234,15 +248,50 @@ def unembed(cfg: ModelConfig, model: nn.Module,
     return common.softcap(logits, cfg.logit_softcap)
 
 
-def hidden(cfg: ModelConfig, model: DenseLM,
-           tokens: torch.Tensor) -> torch.Tensor:
-    """The last layer's output before the final norm, (B, S, D)."""
+def _layer_out(layer: DenseLayer, x, positions, mask, kernel=True):
+    return layer(x, positions, mask, kernel=kernel)[0]
+
+
+# the matrix products remat="dots" keeps (JAX's checkpoint_dots): every
+# projection and attention einsum reaches autograd as one of these
+_DOTS = frozenset({torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+                   torch.ops.aten.addmm.default})
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (_ckpt.CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else _ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _maybe_remat(cfg: ModelConfig, fn):
+    """``fn`` under ``cfg.remat``: "full" keeps only the layer's input
+    for the backward and recomputes the rest, "dots" keeps the matrix
+    products' outputs (selective checkpointing), "none" keeps all."""
+    if cfg.remat == "full":
+        return functools.partial(_ckpt.checkpoint, fn, use_reentrant=False)
+    if cfg.remat == "dots":
+        return functools.partial(
+            _ckpt.checkpoint, fn, use_reentrant=False,
+            context_fn=functools.partial(
+                _ckpt.create_selective_checkpoint_contexts, _dots_policy))
+    if cfg.remat == "none":
+        return fn
+    raise ValueError(f"unknown remat {cfg.remat!r}; one of none, full, dots")
+
+
+def hidden(cfg: ModelConfig, model: DenseLM, tokens: torch.Tensor, *,
+           train: bool = False) -> torch.Tensor:
+    """The last layer's output before the final norm, (B, S, D).
+    ``train=True`` is the differentiable route: attention's plain path
+    (no kernel hints) and each layer under ``cfg.remat``."""
     S = tokens.shape[1]
     x = embed(cfg, model, tokens)
     positions = torch.arange(S, device=x.device)
     mask = common.causal_mask(S, S, window=cfg.window, device=x.device)
+    body = _maybe_remat(cfg, functools.partial(_layer_out, kernel=False)) \
+        if train else _layer_out
     for layer in model.layers:
-        x, _ = layer(x, positions, mask)
+        x = body(layer, x, positions, mask)
     return x
 
 
@@ -251,6 +300,14 @@ def forward(cfg: ModelConfig, model: DenseLM,
             tokens: torch.Tensor) -> torch.Tensor:
     """Scoring forward. tokens (B, S) -> logits (B, S, V)."""
     return unembed(cfg, model, hidden(cfg, model, tokens))
+
+
+def loss_fn(cfg: ModelConfig, model: DenseLM, batch: dict) -> torch.Tensor:
+    """Mean next-token CE of ``batch["tokens"]`` (B, S), float32 0-d,
+    differentiable through the training route (:func:`hidden`)."""
+    tokens = batch["tokens"]
+    logits = unembed(cfg, model, hidden(cfg, model, tokens, train=True))
+    return common.cross_entropy(logits[:, :-1], tokens[:, 1:])
 
 
 @torch.no_grad()

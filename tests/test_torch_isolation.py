@@ -98,6 +98,18 @@ def test_module_walk_covers_the_stream_engine():
             "repro_torch.core.stream.source"} <= names
 
 
+def test_module_walk_covers_the_training_slice():
+    """The blocked-import walk reaches the optimizer, the trainer, the
+    checkpoint, the train launcher and the live controller."""
+    names = {m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                                   "repro_torch.")}
+    assert {"repro_torch.optim", "repro_torch.optim.adamw",
+            "repro_torch.trainer", "repro_torch.tree",
+            "repro_torch.checkpoint", "repro_torch.checkpoint.ckpt",
+            "repro_torch.launch.train",
+            "repro_torch.core.controller"} <= names
+
+
 def test_source_scan_finds_no_jax_or_repro_import():
     offenders = [f"{p.relative_to(ROOT)}: {m.group(0).strip()}"
                  for p in _sources()
@@ -148,3 +160,14 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         serve.main(["--arch", "stablelm-12b", "--smoke"])
     with pytest.raises(RuntimeError, match="device='cpu'"):
         models.init(configs.get_smoke_config("stablelm-12b"))
+    from repro_torch import trainer
+    from repro_torch.core import controller
+    from repro_torch.launch import train
+    from repro_torch.optim import AdamWConfig
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        trainer.init_train_state(configs.get_smoke_config("stablelm-12b"),
+                                 AdamWConfig())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train.main(["--arch", "stablelm-12b", "--smoke", "--steps", "1"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        controller.Controller()

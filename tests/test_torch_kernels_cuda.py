@@ -536,3 +536,73 @@ def test_stream_engine_card_equals_cpu(cuda_device):
               "last_resume"):
         assert np.array_equal(getattr(card, f), getattr(cpu, f)), f
     assert card.events == cpu.events and card.makespan == cpu.makespan
+
+
+@pytest.mark.cuda
+def test_kernel_wrappers_refuse_inputs_that_require_grad(cuda_device):
+    """The three model kernels have no backward: on an input that
+    requires grad, with grad mode on, each wrapper raises rather than
+    return a tensor without ``grad_fn``; under ``no_grad`` it launches."""
+    q, k, v = qkv((1, 128, 128, 4, 2, 32), torch.float32, cuda_device, 4)
+    ssd = ssd_args((1, 64, 2, 16, 8, True), torch.float32, cuda_device, 5)
+    a = torch.rand((2, 8, 16), device=cuda_device)
+    calls = {"flash_attention": (tops.flash_attention, (q, k, v)),
+             "ssd_chunk": (tops.ssd_chunk, ssd),
+             "lru_scan": (tops.lru_scan, (a, a))}
+    for name, (fn, args) in calls.items():
+        before = tops.LAUNCHES[name]
+        leaf = args[0].clone().requires_grad_(True)
+        with pytest.raises(RuntimeError, match=f"{name} kernel has no "
+                           "backward"):
+            fn(leaf, *args[1:])
+        assert tops.LAUNCHES[name] == before
+        with torch.no_grad():
+            fn(leaf, *args[1:])
+        assert tops.LAUNCHES[name] == before + 1
+
+
+def _smoke_train_steps(device, n=2):
+    """``n`` float32 train steps of the dense smoke config from seed 0 on
+    ``device``: (losses, parameters after the steps as CPU tensors)."""
+    from repro_torch import trainer
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data import make_batch
+    from repro_torch.optim import AdamWConfig, adamw_init
+    cfg = get_smoke_config("stablelm-12b").replace(dtype="float32")
+    ocfg = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=10)
+    model = trainer.init_train_state(cfg, ocfg, 0, device="cpu")["params"]
+    model = model.to(device)
+    state = {"params": model, "opt": adamw_init(model, ocfg)}
+    step, losses = trainer.make_train_step(cfg, ocfg), []
+    for i in range(n):
+        batch = make_batch(cfg, 4, 64, 0, i, device="cpu")
+        state, m = step(state, {"tokens": batch["tokens"].to(device)})
+        losses.append(float(m["loss"]))
+    return losses, {k: p.detach().cpu() for k, p in
+                    state["params"].named_parameters()}
+
+
+@pytest.mark.cuda
+def test_dense_train_step_repeats_on_card_and_matches_cpu(cuda_device):
+    """Two dense smoke train steps on the card launch no kernel (attention
+    takes its plain path), repeat bit for bit, and agree with the CPU's
+    within 1e-4: each loss relative, each parameter leaf of its norm
+    (elementwise, AdamW's g / (sqrt(v) + eps) magnifies the f32
+    disagreement of a gradient entry near zero up to the learning rate)."""
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        before = dict(tops.LAUNCHES)
+        loss1, p1 = _smoke_train_steps(cuda_device)
+        loss2, p2 = _smoke_train_steps(cuda_device)
+        assert dict(tops.LAUNCHES) == before
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    assert loss1 == loss2
+    assert all(torch.equal(p1[k], p2[k]) for k in p1)
+    loss_cpu, p_cpu = _smoke_train_steps("cpu")
+    for a, b in zip(loss1, loss_cpu):
+        assert abs(a - b) <= 1e-4 * abs(b), (loss1, loss_cpu)
+    for k in p1:
+        err = float((p1[k] - p_cpu[k]).norm() / p_cpu[k].norm())
+        assert err <= 1e-4, (k, err)
