@@ -44,10 +44,25 @@ two main paths through the entry points a user calls:
   after step 2 (``repro_torch.checkpoint``), restored, and steps 3-4
   replayed bit for bit; then the smoke config's steps on the card
   against the CPU's;
+* ssm and hybrid training: mamba2-1.3b at its published widths and
+  full depth (48 layers, 4 x 2048 tokens; the intra-chunk term by its
+  plain version, no kernel) and recurrentgemma-9b at its published
+  widths with 3 layers (1 x 4096 tokens; the RG-LRU through the
+  lru_scan kernel and its reverse-mode backward, an exact launch count
+  a step), 3 steps each; then each smoke config's steps on the card
+  against the CPU's;
 * the live controller (``repro_torch.core.controller``): real train
   jobs of the dense smoke config preempted by FitGpp, flushed and
-  resumed, their losses bit-equal to an uninterrupted run, and every
-  event log equal to the same specs' run on the CPU.
+  resumed, their losses bit-equal to an uninterrupted run, be0's first
+  loss on the card held against the CPU's to a derived bound, the JAX
+  suite's two mamba2 smoke cases (TE latency, the short-grace-period
+  victim), and every event log equal to the same specs' run on the
+  CPU.
+
+Phase sweep_engine also runs a small table as 2 shards in 2 processes
+on the card (``repro_torch.sharding.trials``) against one process; the
+lru_kernel phase holds the kernel's backward against autograd through
+the plain version.
 
 Each main path runs with every launch count set to 0 just before it and
 read just after. Prints one JSON line per phase, then a
@@ -147,6 +162,11 @@ KERNEL_SWEEP_SHAPES = [(len(SWEEP_S) * w, SWEEP_JOBS, PAPER_NODES)
 # from 4 to pay for phases train and controller)
 SWEEP_ENGINE_GRID = ("burst-storm", 8, 64, 3, (0.0, 2.0, 4.0))
 SWEEP_ENGINE_GANG = ("gang-heavy", PAPER_NODES, GANG_ENGINE_JOBS, 2, (4.0,))
+# the sharded sweep (sharding/trials.py) on the one card: 4 trials (2
+# seeds x s in {0, 4}) of paper-synthetic at 84 nodes and 2**10 jobs,
+# fitgpp, as 2 shards in 2 processes against the one-process run
+SWEEP_SHARDED = ("paper-synthetic", PAPER_NODES, 2 ** 10, 2, (0.0, 4.0))
+SWEEP_SHARD_DEVICES = ("cuda:0", "cuda:0")
 # flash attention: the JAX suite's shapes (tests/test_kernels.py) and
 # more, each in f32 and bf16, (B, Sq, Skv, H, KV, hd, causal, window, softcap)
 FLASH_SHAPES = [
@@ -1260,9 +1280,48 @@ def phase_sweep_engine(torch, np):
                     "launches": stats["launches"],
                     "kernel_path_s": k_s, "plain_path_s": p_s})
     check(compared > 0, "sweep_engine: no lane was held against sim_torch")
+    sharded = sweep_sharded_check(np)
     emit({"phase": "sweep_engine", "equal": True, "cases": len(runs),
           "lanes_vs_sim_torch": compared,
-          "seconds": time.perf_counter() - t0, "runs": runs})
+          "seconds": time.perf_counter() - t0, "runs": runs,
+          "sharded": sharded})
+
+
+def sweep_sharded_check(np):
+    """SWEEP_SHARDED through ``sharding.trials.ShardPool`` as one shard
+    per entry of SWEEP_SHARD_DEVICES (a spawned process each), against
+    the one-process ``run_table`` on the card: every per-job stat and
+    per-lane counter bit for bit."""
+    from repro_torch.core import sweep_fabric
+    from repro_torch.sharding import ShardPool
+    cfg, _, table = sweep_table(np, *SWEEP_SHARDED)
+    cfg = dataclasses.replace(cfg, policy="fitgpp")
+    t0 = time.perf_counter()
+    one = sweep_fabric.run_table(cfg, table, out="per_job", device="cuda")
+    one_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with ShardPool(SWEEP_SHARD_DEVICES) as pool:
+        start_s = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        got = pool.run(cfg, table, out="per_job")
+        run_s = time.perf_counter() - t1
+    total_s = time.perf_counter() - t0
+    diff = [k for k in one.stats
+            if not np.array_equal(one.stats[k], got.stats[k], equal_nan=True)]
+    diff += [k for k in ("lane_iterations", "lane_acting", "lane_drawn")
+             if not np.array_equal(one.engine_stats[k], got.engine_stats[k])]
+    check(not diff, f"sweep_engine: the sharded run differs from the "
+          f"one-process run in {diff}")
+    check(got.n_devices == len(SWEEP_SHARD_DEVICES) and got.n_trials == 4,
+          f"sweep_engine: sharded over {got.n_devices} devices")
+    return {"grid": SWEEP_SHARDED[0], "nodes": SWEEP_SHARDED[1],
+            "jobs": SWEEP_SHARDED[2], "trials": got.n_trials,
+            "devices": list(SWEEP_SHARD_DEVICES),
+            "n_devices": got.n_devices, "n_padded": got.n_padded,
+            "equal": True, "one_process_s": one_s,
+            "pool_start_s": start_s, "sharded_run_s": run_s,
+            "sharded_total_s": total_s,
+            "lane_drawn": one.engine_stats["lane_drawn"].tolist()}
 
 
 def phase_sweep(torch, np):
@@ -1572,6 +1631,15 @@ HYBRID_ARCH = "recurrentgemma-9b"
 LRU_MAIN_SHAPE = (4, 4096, 4096, False)
 LRU_MAIN_CASES = [LRU_MAIN_SHAPE, (4, 4096, 4096, True),
                   (3, 4099, 4001, True)]
+# lru_scan's backward (``LruScan``): the gradients held against autograd
+# through the plain version on the card at the JAX suite's shapes, a
+# ragged one, and phase train_hybrid's shape (1 x 4096 tokens, lru width
+# 4096, no h0), f32. Bit-equality is expected: the reverse launch and
+# autograd do the same IEEE multiply and add per step (which commute),
+# and each of da, db, dh0 is one product or a copy; SCAN_TOL's f32 1e-4
+# is checked as well. The reverse launch is timed at the training shape.
+LRU_TRAIN_SHAPE = (1, 4096, 4096, False)
+LRU_GRAD_CASES = LRU_SHAPES + [(3, 4099, 4001, True), LRU_TRAIN_SHAPE]
 
 
 def check_close(torch, name, got, want, tol):
@@ -1729,12 +1797,16 @@ def phase_lru_kernel(torch):
     ms = time_ms(torch, lambda: ls.lru_scan_cuda(a, b))
     plain_ms = time_ms(torch, lambda: ls.lru_scan_torch(a, b), reps=5)
     bound, bound_by = lru_bound_ms(shape, 4)
+    del a, b
+    backward = lru_backward_checks(torch, ls)
     result = {"name": "lru_scan", "route": "cuda",
               "source": "src/repro_torch/kernels/csrc/lru_scan.cu",
               "replaces": "src/repro/kernels/lru_scan.py:59",
               "max_abs_err": max(max_err.values()), "ms": ms,
               "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
-              "library_ms": None}
+              "library_ms": None, "backward_ms": backward["ms"],
+              "backward_bound_ms": backward["bound_ms"],
+              "backward_shape": backward["shape"]}
     emit({"phase": "lru_kernel", "cases": len(cases),
           "max_abs_err_by_dtype": max_err, "tolerance": SCAN_TOL,
           "bit_equal_all_cases": exact,
@@ -1742,9 +1814,53 @@ def phase_lru_kernel(torch):
                               dtype="float32", h0=False),
           "plain_reps": 5,
           "library_call": "none: no single PyTorch call computes it",
-          **result})
-    del a, b
+          "backward": backward, **result})
     return result
+
+
+def lru_backward_checks(torch, ls):
+    """``LruScan``'s gradients (da, db, dh0) against autograd through
+    ``lru_scan_torch`` on the card at LRU_GRAD_CASES, with the launches
+    each takes (one forward, one reverse); then the reverse launch timed
+    at LRU_TRAIN_SHAPE, queued as the forward is, beside its bound
+    (a and the upstream gradient read, lam written once)."""
+    max_err, exact, launches = 0.0, True, set()
+    for seed, shape in enumerate(LRU_GRAD_CASES):
+        a, b, h0 = lru_inputs(torch, shape, torch.float32, 200 + seed)
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(300 + seed)
+        g = torch.randn(a.shape, generator=gen, device="cuda")
+        grads = []
+        for kernel, fn in ((True, ls.LruScan.apply),
+                           (False, ls.lru_scan_torch)):
+            ins = [x.clone().requires_grad_(True) for x in (a, b, h0)
+                   if x is not None]
+            before = ls.build.LAUNCHES["lru_scan"]
+            out = fn(*ins, *([] if h0 is not None else [None]))
+            grads.append(torch.autograd.grad(out, ins, g))
+            if kernel:
+                launches.add(ls.build.LAUNCHES["lru_scan"] - before)
+            del out, ins
+        torch.cuda.synchronize()
+        for got, want in zip(*grads):
+            max_err = max(max_err, check_close(
+                torch, f"lru_scan backward {shape}", got, want,
+                SCAN_TOL["float32"]))
+            exact = exact and bool(torch.equal(got, want))
+        del a, b, h0, g, grads
+    check(launches == {2}, f"LruScan took {sorted(launches)} launches for "
+          "a forward and a backward, not 2")
+    B, L, R, _ = LRU_TRAIN_SHAPE
+    a, _, _ = lru_inputs(torch, LRU_TRAIN_SHAPE, torch.float32, 400)
+    g = torch.randn_like(a)
+    ms = time_ms(torch, lambda: ls.lru_scan_reverse_cuda(a, g))
+    nbytes = 3 * B * L * R * 4
+    del a, g
+    return {"cases": len(LRU_GRAD_CASES), "max_abs_err": max_err,
+            "bit_equal_all_cases": exact, "tolerance": SCAN_TOL["float32"],
+            "launches_per_call": 2, "shape": [B, L, R], "ms": ms,
+            "bound_ms": nbytes / PEAK_BYTES_PER_S * 1e3,
+            "bound_by": "bytes"}
 
 
 # kernel-name fragments of the matrix products (cuBLAS/CUTLASS on Hopper)
@@ -2703,16 +2819,172 @@ def phase_train_card_vs_cpu(torch):
           f"from the CPU's by {max_rel} (tolerance {TRAIN_CARD_VS_CPU_TOL})")
 
 
-# the live controller: the JAX package's controller cases with the
-# dense smoke config (bf16) in place of the vlm and ssm ones it trains
+# ssm and hybrid training (phases train_ssm, train_hybrid): (layers,
+# batch, seq_len) at the published widths, bf16, f32 AdamW moments,
+# remat "full", TRAIN_FAMILY_STEPS steps at phase train's lr, no
+# checkpoint (phase train covers its host I/O). mamba2-1.3b at full
+# depth (48 layers, 1,343,532,032 parameters); recurrentgemma-9b at 3
+# layers, one (rec, rec, attn) group (1,642,156,032 parameters), 1 x
+# 4096 tokens so the 2048-token local window is exercised: at 2 x 4096
+# the 256,000-token vocabulary's f32 logits, their softcap and their
+# gradient (8.4 GB each) ran the card out of memory (63 GB allocated
+# and 10 GB reserved when an 8.4 GB block was asked for, H100 80 GB)
+TRAIN_FAMILIES = {SSM_ARCH: (None, 4, 2048), HYBRID_ARCH: (3, 1, 4096)}
+TRAIN_FAMILY_STEPS = 3
+
+
+def train_launches(cfg, evals):
+    """{kernel: launches} of TRAIN_FAMILY_STEPS train steps and
+    ``evals`` no-grad evaluations of ``cfg`` on the training route.
+    The ssm launches none (its intra-chunk term takes the plain
+    version; attention, where any, its plain path). A hybrid step runs
+    each recurrent layer's ``LruScan`` forward once, again when its
+    (rec, rec, attn) group is recomputed under remat "full" (not for
+    the remainder layers, which JAX does not remat either), and its
+    reverse launch once; an evaluation launches the forward once."""
+    if cfg.family != "hybrid":
+        return {}
+    from repro_torch.models import hybrid
+    g, _, n_rec, _ = hybrid.layer_layout(cfg)
+    grouped = g * cfg.recurrent.block_pattern.count("rec")
+    per_step = 3 * grouped + 2 * (n_rec - grouped)
+    return {"lru_scan": per_step * TRAIN_FAMILY_STEPS + n_rec * evals}
+
+
+def phase_train_family(torch, arch):
+    """Training for the ssm or hybrid family at its published widths
+    through ``launch.train.train``: finite losses, a lower eval loss
+    after TRAIN_FAMILY_STEPS steps, exactly :func:`train_launches` model
+    kernel launches (ssd_chunk and flash_attention none), peak device
+    memory under the card's 80 GB; s/step, tokens/s and TFLOP/s counted
+    as phase train counts them. Returns the phase's launches."""
+    from repro_torch import models, trainer
+    from repro_torch.configs import get_config
+    from repro_torch.data import make_eval_batch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as launch_train
+    layers, batch, seq = TRAIN_FAMILIES[arch]
+    cfg = get_config(arch)
+    if layers:
+        cfg = cfg.replace(n_layers=layers)
+    path = "train_ssm" if cfg.family == "ssm" else "train_hybrid"
+    check(cfg.dtype == "bfloat16" and cfg.remat == "full",
+          f"unexpected training config {cfg.dtype}, remat {cfg.remat}")
+    ocfg = launch_train.opt_config(TRAIN_FAMILY_STEPS, TRAIN_LR)
+    free_cuda(torch)
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    t0 = time.perf_counter()
+    state = trainer.init_train_state(cfg, ocfg, 0, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    ev = make_eval_batch(cfg, batch, seq, device="cuda")
+    with torch.no_grad():
+        eval_before = float(models.loss_fn(cfg, state["params"], ev))
+    eval_launches = dict(ops.LAUNCHES)
+    zero_launches()
+    res = launch_train.train(cfg, state=state, steps=TRAIN_FAMILY_STEPS,
+                             batch=batch, seq_len=seq, lr=TRAIN_LR, seed=0,
+                             device="cuda", log=None)
+    step_launches = dict(ops.LAUNCHES)
+    zero_launches()
+    with torch.no_grad():
+        eval_after = float(models.loss_fn(cfg, res.state["params"], ev))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    launches = {k: eval_launches[k] + step_launches[k] + ops.LAUNCHES[k]
+                for k in ops.LAUNCHES}
+    losses, step_s = res.losses, res.step_s
+    del state, res, ev
+    free_cuda(torch)
+    n_params = models.count_params(cfg)
+    counted = n_params - cfg.vocab * cfg.d_model      # all but the embedding
+    tokens = batch * seq
+    s_per_step = statistics.mean(step_s[1:])
+    want = train_launches(cfg, evals=2)
+    emit({"phase": path, "arch": arch, "layers": cfg.n_layers,
+          "dtype": cfg.dtype, "moments": ocfg.moment_dtype,
+          "remat": cfg.remat, "batch": batch, "seq_len": seq,
+          "steps": TRAIN_FAMILY_STEPS, "lr": TRAIN_LR, "params": n_params,
+          "init_s": init_s, "losses": losses, "step_s": step_s,
+          "s_per_step": s_per_step, "tokens_per_s": tokens / s_per_step,
+          "step_tflops": 6 * counted * tokens / s_per_step / 1e12,
+          "peak_tflops": PEAK_BF16_FLOPS / 1e12,
+          "eval_loss_before": eval_before, "eval_loss_after": eval_after,
+          "peak_device_gb": peak_gb, "launches": launches,
+          "launches_train_steps": step_launches,
+          "launches_expected": want})
+    check(all(math.isfinite(x) for x in losses),
+          f"{path}: non-finite training loss in {losses}")
+    check(eval_after < eval_before, f"{path}: the eval loss did not drop: "
+          f"{eval_before} -> {eval_after}")
+    check(peak_gb < 80.0, f"{path}: peak device memory {peak_gb} GB")
+    check_launches(launches, want, path)
+    return launches
+
+
+def phase_train_family_card_vs_cpu(torch, arch):
+    """The ssm or hybrid smoke config's train steps on the card against
+    the same steps on the CPU: float32 (TF32 off), each side's initial
+    parameters and tokens drawn on its own device (equal by
+    construction: counter-based init, tokens drawn on the CPU); each
+    step's loss within TRAIN_CARD_VS_CPU_TOL relative."""
+    from repro_torch import trainer
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data import make_batch
+    from repro_torch.kernels import ops
+    from repro_torch.optim import AdamWConfig
+    cfg = get_smoke_config(arch).replace(dtype="float32")
+    ocfg = AdamWConfig(lr=TRAIN_LR, warmup_steps=1, total_steps=10)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    losses, init_equal = {}, True
+    zero_launches()
+    try:
+        states = {dev: trainer.init_train_state(cfg, ocfg, 0, device=dev)
+                  for dev in ("cuda", "cpu")}
+        for (n, a), (_, b) in zip(
+                states["cuda"]["params"].named_parameters(),
+                states["cpu"]["params"].named_parameters()):
+            init_equal = init_equal and bool(torch.equal(a.cpu(), b))
+        for dev in ("cuda", "cpu"):
+            state = states[dev]
+            step, losses[dev] = trainer.make_train_step(cfg, ocfg), []
+            for i in range(2):
+                state, m = step(state, make_batch(cfg, 4, 64, 0, i,
+                                                  device=dev))
+                losses[dev].append(float(m["loss"]))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    launches = dict(ops.LAUNCHES)
+    max_rel = max(abs(a - b) / abs(b)
+                  for a, b in zip(losses["cuda"], losses["cpu"]))
+    emit({"phase": f"train_{cfg.family}_card_vs_cpu", "arch": cfg.name,
+          "dtype": "float32", "allow_tf32": False, "losses": losses,
+          "init_bit_equal": init_equal, "launches": launches,
+          "loss_max_rel_err": max_rel, "tolerance": TRAIN_CARD_VS_CPU_TOL})
+    check(init_equal, f"{cfg.name}: the card's initial parameters differ "
+          "from the CPU's")
+    check(max_rel <= TRAIN_CARD_VS_CPU_TOL, f"{cfg.name}: the card's train "
+          f"step differs from the CPU's by {max_rel} (tolerance "
+          f"{TRAIN_CARD_VS_CPU_TOL})")
+
+
+# the live controller: the JAX package's preempt/resume case with the
+# dense smoke config (bf16) in place of its vlm one, and its two cases
+# that train the mamba2 smoke config (TE latency under fitgpp and fifo;
+# the short-grace-period victim)
 CONTROLLER_ARCH = TRAIN_ARCH
+CONTROLLER_SSM_ARCH = SSM_ARCH
 CONTROLLER_NODE = (32.0, 256.0, 8.0)
 
 
 def controller_case(np, ctl_mod, cfg, case, policy, device, workdir):
     """One controller run: ``be_te`` (one node; BE be0 for 16 steps,
     demand (8, 32, 8); TE te0 for 2 steps, demand (4, 16, 8), at tick 2;
-    grace periods estimated from the live state) or ``fleet`` (like
+    grace periods estimated from the live state), ``te_latency`` (one
+    node; be0 for 30 steps, te0 (4, 16, 4) for 2 at tick 1), ``victim``
+    (2 nodes, s = 4; BE jobs of 40 steps with grace periods of 5 and 1
+    ticks, a TE at tick 1; one step a tick) or ``fleet`` (like
     ``examples/preemptible_training.py``: 2 nodes, s = 4, BE jobs with
     grace periods of 5 and 1 ticks, a TE at tick 1 and another, with an
     estimated grace period, at tick 6). Returns the controller."""
@@ -2726,6 +2998,23 @@ def controller_case(np, ctl_mod, cfg, case, policy, device, workdir):
                         total_steps=16))
         ctl.submit(spec("te0", cfg, True, np.array([4., 16., 8.]),
                         total_steps=2, submit_tick=2))
+    elif case == "te_latency":      # the JAX suite's, on mamba2's smoke
+        ctl = ctl_mod.Controller(n_nodes=1, node_cap=CONTROLLER_NODE,
+                                 policy=policy, steps_per_tick=2,
+                                 workdir=workdir, device=device)
+        ctl.submit(spec("be0", cfg, False, np.array([8., 32., 8.]),
+                        total_steps=30))
+        ctl.submit(spec("te0", cfg, True, np.array([4., 16., 4.]),
+                        total_steps=2, submit_tick=1))
+    elif case == "victim":          # the JAX suite's, on mamba2's smoke
+        ctl = ctl_mod.Controller(n_nodes=2, node_cap=CONTROLLER_NODE,
+                                 policy=policy, s=4.0, workdir=workdir,
+                                 device=device)
+        for name, gp in (("be_long_gp", 5), ("be_short_gp", 1)):
+            ctl.submit(spec(name, cfg, False, np.array([8., 32., 8.]),
+                            total_steps=40, gp_ticks=gp))
+        ctl.submit(spec("te", cfg, True, np.array([4., 16., 4.]),
+                        total_steps=2, submit_tick=1))
     else:
         ctl = ctl_mod.Controller(n_nodes=2, node_cap=CONTROLLER_NODE,
                                  policy=policy, s=4.0, steps_per_tick=2,
@@ -2746,9 +3035,10 @@ def controller_case(np, ctl_mod, cfg, case, policy, device, workdir):
 def phase_controller(torch, np):
     """The live controller on the card: real train jobs preempted and
     resumed through checkpoints; be0's losses across its preemption
-    against its uninterrupted run, the TE's slowdown under fitgpp and
-    fifo, the fleet's victim, and every event log against the same
-    specs' run on the CPU."""
+    against its uninterrupted run, its first loss against the CPU's
+    (:func:`be0_first_loss_bound`), the TE's slowdown under fitgpp and
+    fifo, the fleet's victim, the JAX suite's two mamba2 smoke cases,
+    and every event log against the same specs' run on the CPU."""
     import shutil
     from repro_torch import trainer
     from repro_torch.configs import get_smoke_config
@@ -2756,7 +3046,10 @@ def phase_controller(torch, np):
     from repro_torch.data import make_batch
     from repro_torch.kernels import ops
     cfg = get_smoke_config(CONTROLLER_ARCH)
-    runs = (("be_te", "fitgpp"), ("be_te", "fifo"), ("fleet", "fitgpp"))
+    ssm_cfg = get_smoke_config(CONTROLLER_SSM_ARCH)
+    runs = (("be_te", "fitgpp"), ("be_te", "fifo"), ("fleet", "fitgpp"),
+            ("te_latency", "fitgpp"), ("te_latency", "fifo"),
+            ("victim", "fitgpp"))
     tmp = tempfile.mkdtemp(prefix="chip_smoke_ctl_")
     zero_launches()
     out = {}
@@ -2764,7 +3057,8 @@ def phase_controller(torch, np):
         for dev in ("cuda", "cpu"):
             for case, policy in runs:
                 out[dev, case, policy] = controller_case(
-                    np, ctl_mod, cfg, case, policy, dev,
+                    np, ctl_mod, ssm_cfg if case in ("te_latency", "victim")
+                    else cfg, case, policy, dev,
                     os.path.join(tmp, f"{dev}-{case}-{policy}"))
         launches = dict(ops.LAUNCHES)
         ctl = out["cuda", "be_te", "fitgpp"]
@@ -2777,6 +3071,7 @@ def phase_controller(torch, np):
                                         seed=1, step=i, device="cuda"))
             base.append(float(m["loss"]))
         del st
+        first = be0_first_loss_bound(torch, cfg, be.spec, ctl_mod)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -2801,6 +3096,14 @@ def phase_controller(torch, np):
                          if e["ev"] == "preempt"), None)
     same_log = {f"{case}/{policy}": log(out["cuda", case, policy])
                 == log(out["cpu", case, policy]) for case, policy in runs}
+    ssm_te = {p: out["cuda", "te_latency", p] for p in ("fitgpp", "fifo")}
+    ssm_sd = {p: c.slowdown(c.jobs[1]) for p, c in ssm_te.items()}
+    victim = out["cuda", "victim", "fitgpp"]
+    ssm_victim = next((e["job"] for e in victim.events
+                       if e["ev"] == "preempt"), None)
+    first["card"] = be.losses[0]
+    first["cpu"] = out["cpu", "be_te", "fitgpp"].jobs[0].losses[0]
+    first["diff"] = abs(first["card"] - first["cpu"])
     emit({"phase": "controller", "arch": cfg.name, "dtype": cfg.dtype,
           "runs": {f"{case}/{policy}": summary(out["cuda", case, policy])
                    for case, policy in runs},
@@ -2810,7 +3113,12 @@ def phase_controller(torch, np):
           "be0_losses_bit_equal": be.losses == base,
           "te_slowdown": {"fitgpp": sd_fitgpp, "fifo": sd_fifo},
           "fleet_first_victim": first_victim,
-          "event_log_equals_cpu": same_log, "launches": launches})
+          "event_log_equals_cpu": same_log, "launches": launches,
+          "ssm_arch": ssm_cfg.name, "ssm_te_slowdown": ssm_sd,
+          "ssm_first_victim": ssm_victim,
+          "ssm_victim_preempt_count": {
+              j.spec.name: j.preempt_count for j in victim.jobs},
+          "be0_first_loss": first})
     check(be.preempt_count == 1, f"be0 preempted {be.preempt_count} times")
     check(be.losses == base, "be0's losses across its preemption differ "
           "from its uninterrupted run")
@@ -2821,12 +3129,83 @@ def phase_controller(torch, np):
           f"the fleet's victim was {first_victim}, not the short-GP job")
     check(all(same_log.values()), f"event logs differ from the CPU's: "
           f"{same_log}")
+    check(first["init_bit_equal"] and first["tokens_bit_equal"],
+          "be0's initial parameters or first batch differ between the card "
+          "and the CPU")
+    check(first["max_logit_diff"] <= first["logit_tol"], f"be0's first "
+          f"logits on the card differ from the CPU's by "
+          f"{first['max_logit_diff']} (tolerance {first['logit_tol']})")
+    check(first["diff"] <= first["bound"], f"be0's first loss on the card "
+          f"{first['card']} differs from the CPU's {first['cpu']} by more "
+          f"than {first['bound']}")
+    check(ssm_sd["fitgpp"] < ssm_sd["fifo"], f"{ssm_cfg.name}: TE slowdown "
+          f"under fitgpp {ssm_sd['fitgpp']} is not below fifo's "
+          f"{ssm_sd['fifo']}")
+    check(victim.jobs[1].preempt_count == 1
+          and victim.jobs[0].preempt_count == 0
+          and ssm_victim == "be_short_gp",
+          f"{ssm_cfg.name}: the victim was {ssm_victim}, not the short-GP "
+          "job alone")
+
+
+# be0's logits on the card against the CPU's (phase controller), both
+# from equal initial parameters and tokens through the bf16 smoke
+# config's training route: each within this many bf16 steps of the
+# CPU's, a step taken at the CPU's largest |logit| (2^(e-7) for |z| in
+# [2^e, 2^(e+1))). A tolerance fixed before the run: one step for the
+# output head's own rounding, and three for what its input carries out
+# of the smoke config's 2 layers, whose matrix products, residual adds
+# and final norm each round to bf16 with other f32 summation orders on
+# the two devices. A forward wrong by 2^-5 of max|logit| fails.
+BE0_LOGIT_STEPS = 4
+
+
+def be0_first_loss_bound(torch, cfg, spec, ctl_mod):
+    """be0's initial parameters and first batch on the card and on the
+    CPU (equal bit for bit, by construction), their logits through the
+    training route, the logits' tolerance ``logit_tol``
+    (:data:`BE0_LOGIT_STEPS` bf16 steps at the CPU's largest |logit|),
+    and the bound the two first losses must keep, computed from the
+    CPU's logits alone: 2 logit_tol + 2 (V + n) 2^-24 s, s the CPU's
+    largest logsumexp plus its largest |logit| (what a token's CE can
+    reach). A token's CE has gradient softmax - onehot in the logits,
+    of L1 norm at most 2, so |dCE| <= 2 max|dz| for each token and for
+    their mean; the second term bounds the f32 rounding of each side's
+    logsumexp over V classes and mean over n tokens."""
+    from repro_torch import trainer
+    from repro_torch.data import make_batch
+    from repro_torch.models import dense
+    out = {}
+    for dev in ("cuda", "cpu"):
+        st = trainer.init_train_state(cfg, spec.opt,
+                                      ctl_mod.job_seed(spec.name),
+                                      device=dev)
+        tok = make_batch(cfg, spec.batch, spec.seq_len, seed=1, step=0,
+                         device=dev)["tokens"]
+        with torch.no_grad():
+            m = st["params"]
+            z = dense.unembed(cfg, m, dense.hidden(cfg, m, tok, train=True))
+        out[dev] = ({k: v.detach().cpu() for k, v in m.state_dict().items()},
+                    tok.cpu(), z.float().cpu())
+    (pc, tc, zc), (pp, tp, zp) = out["cuda"], out["cpu"]
+    n_tok = tc.shape[0] * (tc.shape[1] - 1)
+    z_max = float(zp.abs().max())
+    logit_tol = BE0_LOGIT_STEPS * 2.0 ** (math.floor(math.log2(z_max)) - 7)
+    # a token's CE is at most its logsumexp plus its largest |logit|
+    scale = float(torch.logsumexp(zp, -1).abs().max()) + z_max
+    return {"init_bit_equal": all(torch.equal(pc[k], pp[k]) for k in pp),
+            "tokens_bit_equal": bool(torch.equal(tc, tp)),
+            "max_logit_diff": float((zc - zp).abs().max()),
+            "max_abs_logit": z_max, "logit_tol": logit_tol,
+            "bound": 2 * logit_tol
+            + 2 * (cfg.vocab + n_tok) * 2.0 ** -24 * scale}
 
 
 PHASES = ("build", "kernel", "flash_kernel", "ssd_kernel", "lru_kernel",
           "engine", "sweep_engine", "paper", "gang", "reference", "trace",
           "stream", "sweep", "serve", "serve_f32", "serve_card_vs_cpu",
-          "serve_ssm", "serve_hybrid", "train", "controller")
+          "serve_ssm", "serve_hybrid", "train", "train_ssm",
+          "train_hybrid", "controller")
 # run only when named in --phases
 EXTRA_PHASES = ("sweep_b1",)
 
@@ -2905,6 +3284,14 @@ def main(argv=None) -> int:
         if "train" in phases:
             phase_train(torch)
             phase_train_card_vs_cpu(torch)
+        for arch in (SSM_ARCH, HYBRID_ARCH):
+            path = "train_ssm" if arch == SSM_ARCH else "train_hybrid"
+            if path not in phases:
+                continue
+            for name, n in phase_train_family(torch, arch).items():
+                if n:
+                    launches.setdefault(name, {})[path] = n
+            phase_train_family_card_vs_cpu(torch, arch)
         if "controller" in phases:
             phase_controller(torch, np)
     except SmokeFailure as e:

@@ -32,8 +32,9 @@ Batched studies go through the same module: :func:`sensitivity_grid`,
 sweep fabric underneath them (``core/sweep_fabric.py``): one trial
 table, every trial of a grid in one batched engine run
 (``core/sim_batch.py``) on ``device`` (the current CUDA device unless
-the caller passes one). :func:`mesh_for_sweep` says how many devices a
-sweep uses: one (multi-device sweeps are not ported yet).
+the caller passes one). :func:`mesh_for_sweep` names the devices a
+sweep uses: one by default, or with ``devices=N`` N shards of the
+table, one process each (``sharding/trials.py``).
 """
 from __future__ import annotations
 

@@ -71,6 +71,8 @@ import numpy as np
 import torch
 
 from repro_torch.configs.cluster import SimConfig
+from repro_torch.draws import M32
+from repro_torch.draws import mix32 as _mix32
 from repro_torch.core import policy_registry
 from repro_torch.core.sim_torch import (_BIG, _EPS, _INF, BOOL, F32, I32,
                                         MAX_TICKS, Jobs, _argmax_key,
@@ -87,8 +89,6 @@ CHECK_EVERY = 8
 # a round after a lane's last placement is a no-op, and on the card a
 # read costs more than a round
 BE_ROUNDS = 4
-_M32 = 0xFFFFFFFF
-_MIX = 0x45D9F3B      # odd, < 2**31: a 32-bit product stays below 2**63
 
 
 @dataclass
@@ -165,21 +165,12 @@ def lane(arrays: dict, b: int) -> dict:
     return {k: v[b] for k, v in arrays.items() if k != "draws"}
 
 
-def _mix32(x: torch.Tensor) -> torch.Tensor:
-    """A 32-bit integer hash of int64 values in [0, 2**32)."""
-    x = x ^ (x >> 16)
-    x = (x * _MIX) & _M32
-    x = x ^ (x >> 16)
-    x = (x * _MIX) & _M32
-    return x ^ (x >> 16)
-
-
 def uniforms(seed: torch.Tensor, count: torch.Tensor, n: int
              ) -> torch.Tensor:
     """(B, n) float64 uniforms in [0, 1): entry (b, j) hashes
     (``seed[b]``, ``count[b]``, j), 53 bits from two 32-bit words; the
     same on every device (int64 tensor ops only)."""
-    key = _mix32(_mix32(seed.to(I64) & _M32) ^ (count.to(I64) & _M32))
+    key = _mix32(_mix32(seed.to(I64) & M32) ^ (count.to(I64) & M32))
     j = torch.arange(n, dtype=I64, device=seed.device)
     h1 = _mix32(key[:, None] ^ j)
     h2 = _mix32(h1 ^ 0x9E3779B9)

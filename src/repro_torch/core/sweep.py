@@ -9,8 +9,11 @@ in one batched engine run on ``device`` (the current CUDA device unless
 the caller passes one; ``device="cpu"`` runs the plain path). The JAX
 wrappers' ``mesh`` and ``trial_axes`` arguments pick a JAX device mesh
 and have no counterpart here: ``devices`` follows
-``launch.mesh.mesh_for_sweep`` (one device; more raises until
-multi-device sweeps are ported). New code wanting per-job pooling uses
+``launch.mesh.mesh_for_sweep`` (one device by default; N shards the
+table over N devices, one process each, with the same results), and
+``api.mesh_for_sweep(n_trials, devices, device)`` names the devices a
+call uses. New code wanting per-job pooling, or the padding and device
+counts of a sharded run (``SweepResult.n_padded``, ``n_devices``), uses
 ``sweep_fabric.run_table`` directly; callers reach both through
 ``repro_torch.api``.
 """
@@ -73,27 +76,36 @@ def sensitivity_grid(cfg: SimConfig, n_jobs: int, s_vals: Sequence[float],
     return _reshape(out, ns, nt)
 
 
+def scenario_table(cfg: SimConfig, names: Sequence[str],
+                   seeds: Sequence[int]) -> sweep_fabric.TrialTable:
+    """The ragged multi-scenario grid as one fabric table: trial
+    ``i * len(seeds) + j`` is scenario ``names[i]`` at ``seeds[j]``,
+    even when the scenarios produce different job counts (sentinel
+    padding, ``stack_jobsets``) or gang (multi-node) jobs; widths ride
+    through the padding."""
+    jobsets = [scenarios.build(name, dataclasses.replace(cfg, seed=sd))
+               for name in names for sd in seeds]
+    n = len(jobsets)
+    return sweep_fabric.table_from_stacked(
+        stack_jobsets(jobsets), np.full(n, cfg.s, np.float32),
+        np.full(n, cfg.max_preemptions, np.int32),
+        np.tile(np.asarray(seeds, np.uint32), len(names)))
+
+
 def scenario_sweep(cfg: SimConfig, names: Sequence[str],
                    seeds: Sequence[int],
                    time_mode: Optional[str] = None,
                    devices: Optional[int] = None,
                    device=None) -> Dict[str, np.ndarray]:
-    """Ragged multi-scenario grid: all (scenario, seed) trials in ONE
-    fabric table, even when the scenarios produce different job counts
-    (sentinel padding, ``stack_jobsets``) or gang (multi-node) jobs;
-    widths ride through the padding.
+    """Ragged multi-scenario grid (:func:`scenario_table`) in one
+    fabric run.
 
     Returns arrays of shape (len(names), len(seeds), ...)."""
     device = _device.resolve(device)          # fail before the build
-    jobsets = [scenarios.build(name, dataclasses.replace(cfg, seed=sd))
-               for name in names for sd in seeds]
-    nn, nt = len(names), len(seeds)
-    s_flat = np.full(nn * nt, cfg.s, np.float32)
-    P_flat = np.full(nn * nt, cfg.max_preemptions, np.int32)
-    seed_flat = np.tile(np.asarray(seeds, np.uint32), nn)
-    out = run_sweep(cfg, stack_jobsets(jobsets), s_flat, P_flat, seed_flat,
-                    time_mode=time_mode, devices=devices, device=device)
-    return _reshape(out, nn, nt)
+    res = sweep_fabric.run_table(cfg, scenario_table(cfg, names, seeds),
+                                 devices=devices, time_mode=time_mode,
+                                 device=device)
+    return _reshape(res.stats, len(names), len(seeds))
 
 
 # ``sweep.run``: the one entry point callers batch everything through.

@@ -31,11 +31,13 @@ aliasing the table's buffers into a compiled program) and
 ``compile_stats`` (the cache of jitted runners; eager PyTorch compiles
 nothing per config). In their place ``SweepResult.engine_stats`` holds
 the batched engine's counters (iterations, host reads, schedule passes,
-kernel launches). The port runs a table on one device: sharding its
-trials over several (the JAX ``shard_map`` over ``mesh_for_sweep``'s
-mesh, ``sharding/trials.py``) is a later item, multi-device sweeps, and
-``launch.mesh.mesh_for_sweep`` raises for a request that would use
-more than one device.
+kernel launches). A table runs on one device in the calling process
+unless ``devices`` asks for more: then, as the JAX module shards it
+with ``shard_map`` over ``mesh_for_sweep``'s mesh, it is padded with
+sentinel trials to a multiple of the device count, each shard runs in
+a process of its own on its own device (``sharding/trials.py``), and
+the results come back in trial order with the padding dropped; a
+trial's result is the same either way, bit for bit.
 
 ``core/sweep.py`` (``run_sweep`` / ``sensitivity_grid`` /
 ``scenario_sweep``) is a thin wrapper over this module; callers reach
@@ -246,7 +248,9 @@ class SweepResult:
     which per-trial summary produced it ("percentiles": the classic
     ``run_sweep`` dict; "per_job": raw per-job arrays for
     :func:`pooled_tables`). ``engine_stats`` holds the batched
-    engine's counters of the run (``sim_batch.run``'s ``stats``)."""
+    engine's counters of the run (``sim_batch.run``'s ``stats``; for a
+    sharded run the per-lane arrays in trial order, the counters summed
+    over the shards and each shard's under ``"shards"``)."""
     stats: Dict[str, np.ndarray]
     n_trials: int
     n_padded: int
@@ -265,24 +269,32 @@ def run_table(cfg: SimConfig, table: TrialTable, *,
               time_mode: Optional[str] = None,
               out: str = "percentiles",
               device=None) -> SweepResult:
-    """Run every trial of ``table`` under the static ``cfg`` in one
-    batched engine run on ``device`` (the current CUDA device unless
-    given; ``"cpu"`` runs the plain path); the entry point everything
-    batches through.
+    """Run every trial of ``table`` under the static ``cfg`` on
+    ``device``'s kind (the current CUDA device unless given; ``"cpu"``
+    runs the plain path); the entry point everything batches through.
 
-    ``devices`` is ``mesh_for_sweep``'s: the table runs on one device
-    (the default); an explicit request for several that are present
-    raises (multi-device sweeps are not ported). ``time_mode`` defaults to ``cfg.time_mode``;
-    ``out`` selects the per-trial summary (:data:`_TRIAL_FNS`). The
-    table is left as it was (no donation)."""
+    ``devices`` is ``mesh_for_sweep``'s: by default, or when one device
+    is granted, the table is one batched engine run on ``device`` in
+    this process. When more are granted, the table is sharded on its
+    trial axis over that many devices, one spawned process each
+    (``sharding.trials.ShardPool``, started for the call and stopped
+    after it; a grid of several configs can start one pool and call its
+    ``run`` for each), and ``n_padded`` / ``n_devices`` say how.
+    ``time_mode`` defaults to ``cfg.time_mode``; ``out`` selects the
+    per-trial summary (:data:`_TRIAL_FNS`). The table is left as it was
+    (no donation)."""
     if out not in _TRIAL_FNS:
         raise ValueError(f"unknown out {out!r}; one of "
                          f"{tuple(_TRIAL_FNS)}")
-    dev = _device.resolve(device)
     if time_mode is None:
         time_mode = cfg.time_mode
+    dev = _device.resolve(device)
     T = int(table.s.shape[0])
-    mesh_for_sweep(T, devices=devices, device=dev)
+    shard_devices = mesh_for_sweep(T, devices=devices, device=dev)
+    if shard_devices is not None:
+        from repro_torch.sharding.trials import ShardPool
+        with ShardPool(shard_devices) as own:
+            return own.run(cfg, table, time_mode=time_mode, out=out)
     jobs = table.jobs.map(lambda x: x.to(dev))
     engine_stats: Dict = {}
     st = sim_batch.run(cfg, jobs, table.s.to(dev), table.P.to(dev),

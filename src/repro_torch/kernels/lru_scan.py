@@ -11,6 +11,16 @@ oracle takes an associative scan, which rounds differently).
 :func:`lru_scan_cuda` launches ``csrc/lru_scan.cu``, which does the same
 operations in the same order, and masks ragged L and R itself (the JAX
 wrapper pads them with a = 1, b = 0).
+
+:class:`LruScan` is the kernel with a backward, for training on the
+card (the JAX package differentiates its associative scan; this is the
+gradient of the same function). Its backward is the recurrence run
+from the end, lam_t = a_{t+1} lam_{t+1} + g_t, one launch of the same
+kernel in reverse mode (:func:`lru_scan_reverse_cuda`, which reads
+a_{t+1} where the forward reads a_t, so no shifted or flipped copy is
+made), then db = lam, da_t = lam_t h_{t-1} and dh0 = a_0 lam_0 in two
+elementwise products. It takes float32 a and b, what the hybrid's
+``RecMixer`` passes.
 """
 from __future__ import annotations
 
@@ -41,11 +51,14 @@ def lru_scan_torch(a: torch.Tensor, b: torch.Tensor,
 
 def _lib() -> ctypes.CDLL:
     lib = build.load("lru_scan")
-    fn = lib.lru_scan_launch
+    fn, rev = lib.lru_scan_launch, lib.lru_scan_reverse_launch
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 \
             + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
+        rev.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 \
+            + [ctypes.c_void_p]
+        rev.restype = ctypes.c_int
     return lib
 
 
@@ -90,3 +103,73 @@ def lru_scan_cuda(a: torch.Tensor, b: torch.Tensor,
                            f"{err}")
     build.LAUNCHES["lru_scan"] += 1
     return out
+
+
+def lru_scan_reverse_cuda(a: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """The backward's recurrence on the card: lam (B, L, R) float32 with
+    lam_{L-1} = g_{L-1} and lam_t = a_{t+1} lam_{t+1} + g_t, for float32
+    contiguous CUDA ``a`` and ``g`` of one (B, L, R) shape. One launch of
+    ``csrc/lru_scan.cu`` in reverse mode, counted as an ``lru_scan``
+    launch; raises on other inputs and on a failed launch."""
+    if a.dim() != 3 or g.shape != a.shape:
+        raise ValueError(f"lru_scan_reverse_cuda: a and g must be one "
+                         f"(B, L, R) shape, got {tuple(a.shape)} and "
+                         f"{tuple(g.shape)}")
+    for name, t in (("a", a), ("g", g)):
+        if t.device.type != "cuda" or t.device != a.device \
+                or t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError(f"lru_scan_reverse_cuda: {name} must be a "
+                             f"contiguous float32 CUDA tensor on a's "
+                             f"device, got {t.dtype} on {t.device}")
+    B, L, R = a.shape
+    lam = torch.empty_like(a)
+    if B == 0 or L == 0 or R == 0:
+        return lam
+    lib = _lib()
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream(a.device)
+        err = lib.lru_scan_reverse_launch(a.data_ptr(), g.data_ptr(),
+                                          lam.data_ptr(), B, L, R,
+                                          stream.cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"lru_scan reverse kernel launch failed with "
+                           f"CUDA error {err}")
+    build.LAUNCHES["lru_scan"] += 1
+    return lam
+
+
+class LruScan(torch.autograd.Function):
+    """``lru_scan_cuda`` with a backward on the card (float32 a, b and
+    h0). Forward: one launch, saving a, h and h0. Backward: one reverse
+    launch for lam, then da_t = lam_t h_{t-1} (h_{-1} = h0, or 0),
+    db = lam, dh0 = a_0 lam_0. Each is the multiply or add autograd
+    through :func:`lru_scan_torch` does, so the gradients agree with it
+    bit for bit."""
+
+    @staticmethod
+    def forward(ctx, a, b, h0=None):
+        for name, t in (("a", a), ("b", b), ("h0", h0)):
+            if t is not None and t.dtype != torch.float32:
+                raise ValueError(f"LruScan differentiates float32 inputs; "
+                                 f"{name} is {t.dtype}")
+        h = lru_scan_cuda(a, b, h0)
+        ctx.save_for_backward(a, h, h0)
+        return h
+
+    @staticmethod
+    def backward(ctx, g):
+        a, h, h0 = ctx.saved_tensors
+        lam = lru_scan_reverse_cuda(a, g.contiguous())
+        da = db = dh0 = None
+        if ctx.needs_input_grad[0]:
+            da = torch.empty_like(lam)
+            da[:, 1:] = lam[:, 1:] * h[:, :-1]
+            if h0 is None:
+                da[:, 0] = 0.0
+            else:
+                da[:, 0] = lam[:, 0] * h0
+        if ctx.needs_input_grad[1]:
+            db = lam
+        if h0 is not None and ctx.needs_input_grad[2]:
+            dh0 = a[:, 0] * lam[:, 0]
+        return da, db, dh0

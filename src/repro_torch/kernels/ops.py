@@ -2,9 +2,12 @@
 
 Dispatch is by device: a CUDA tensor goes to the hand-written kernel,
 a CPU tensor to its plain PyTorch version. There is no fallback from
-the kernel to the plain version. The flash, SSD and LRU kernels have no
+the kernel to the plain version. The flash and SSD kernels have no
 backward: on a CUDA input that requires grad, with grad mode on, their
-wrappers raise.
+wrappers raise (training takes their plain versions by route, as the
+JAX package trains through jnp). The LRU kernel has one: such an input
+goes through ``lru_scan.LruScan``, whose backward launches the kernel
+in reverse mode.
 
 ``LAUNCHES`` counts kernel launches per kernel name, one dict over all
 kernels (a plain integer each, raised by each CUDA wrapper once its
@@ -124,8 +127,14 @@ def lru_scan(a, b, h0=None):
     """Diagonal linear recurrence h_t = a_t h_{t-1} + b_t with a float32
     carry: a, b (B, L, R), h0 (B, R) or None -> h (B, L, R) in a's type;
     see ``kernels/lru_scan.py``. The kernel masks ragged L and R where
-    the JAX wrapper pads them with a = 1, b = 0."""
+    the JAX wrapper pads them with a = 1, b = 0. On a CUDA input that
+    requires grad (grad mode on) the call goes through
+    ``lru_scan.LruScan``, the kernel with its backward, which takes
+    float32 inputs only; the CPU's plain version is differentiated by
+    autograd."""
     if a.device.type != "cuda" or _FORCE_PLAIN:
         return _ls.lru_scan_torch(a, b, h0)
-    _refuse_grad("lru_scan", a, b, h0)
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (a, b, h0)):
+        return _ls.LruScan.apply(a, b, h0)
     return _ls.lru_scan_cuda(a, b, h0)

@@ -38,7 +38,10 @@ def _chunks_torch(x, loga, Bm, Cm):
     z = torch.cumsum(loga, dim=1)                         # (B', q, H)
     T = z[:, :, None, :] - z[:, None, :, :]               # (B', q, q, H)
     causal = torch.ones((q, q), dtype=torch.bool, device=x.device).tril()
-    decay = torch.where(causal[None, :, :, None], torch.exp(T), 0.0)
+    # mask before the exp: above the diagonal T is a sum of -loga >= 0,
+    # whose exp may overflow, and an inf there would make the masked
+    # entries' gradient nan (0 * inf) on the training route
+    decay = torch.exp(torch.where(causal[None, :, :, None], T, -torch.inf))
     scores = torch.einsum("bqhn,bshn->bqsh", Cm, Bm)
     return torch.einsum("bqsh,bshp->bqhp", scores * decay, x)
 

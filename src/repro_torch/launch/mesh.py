@@ -1,47 +1,60 @@
 """The sweep's device choice (the port's side of the JAX package's
 ``launch/mesh.py::mesh_for_sweep``).
 
-The JAX sweep fabric shards its trial table over a 1-D device mesh.
-The port runs a table on one device; sharding it over several (one
-process per device) is a later item, multi-device sweeps, and until it
-lands the port has no counterpart of ``sharding/trials.py``. So
-:func:`mesh_for_sweep` runs a sweep on one device unless the caller
-asks for more, keeps the JAX function's warnings for a request that
-cannot be met, and raises for a request of several devices that could
-be.
+The JAX sweep fabric shards its trial table over a 1-D device mesh. The
+port shards it over processes, one per device
+(``repro_torch.sharding.trials``): :func:`mesh_for_sweep` names the
+devices a sweep runs on, with the JAX function's rules and warnings.
+On the CPU the host's processes stand in for JAX's forced host devices
+(``--xla_force_host_platform_device_count``): the host offers one
+process per core, ``os.cpu_count()``.
 """
 from __future__ import annotations
 
+import os
 import warnings
-from typing import Optional
+from typing import List, Optional
 
 import torch
 
 from repro_torch import device as _device
 
 
-def _available(dev: torch.device) -> int:
-    """Devices of ``dev``'s kind a sweep could use: the CUDA devices,
-    or the host as one device."""
-    return torch.cuda.device_count() if dev.type == "cuda" else 1
+def _available(device) -> int:
+    """Devices of ``device``'s kind a sweep could use: the CUDA devices,
+    or on the CPU one process per core."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        return torch.cuda.device_count()
+    return os.cpu_count() or 1
+
+
+def _device_list(device, n: int) -> List[str]:
+    """``n`` devices of ``device``'s kind for a sharded sweep: the CUDA
+    devices 0 .. n-1, or the host ``n`` times (one process each)."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        return [f"cuda:{i}" for i in range(n)]
+    return [dev.type] * n
 
 
 def mesh_for_sweep(n_trials: Optional[int] = None,
-                   devices: Optional[int] = None, device=None):
-    """How many devices a sweep of ``n_trials`` trials uses on
-    ``device``'s kind (the current CUDA device unless given): ``None``,
-    the single-device run, which is all the port runs.
+                   devices: Optional[int] = None,
+                   device=None) -> Optional[List[str]]:
+    """The devices a sweep of ``n_trials`` trials runs on, of
+    ``device``'s kind (the current CUDA device unless given): ``None``
+    for the single-device run (in the calling process), else the list
+    of :func:`_device_list`, one process each.
 
     ``devices=None`` means one device (the JAX function takes every
-    device present; the port runs a table on ``device`` until
-    multi-device sweeps land). Otherwise the JAX function's rules:
-    ``min(devices, n_trials)``; asking for more devices than are
-    present warns (``UserWarning``), never silently, and falls back to
-    those present; a request for more than one that falls back to one
-    warns again. Where an explicit request comes to more than one
-    device, this raises ``NotImplementedError``: multi-device sweeps
-    are not ported."""
-    avail = _available(_device.resolve(device))
+    device present; the port runs a table on ``device`` unless asked
+    for more). Otherwise the JAX function's rules: ``min(devices,
+    n_trials)``; asking for more devices than are present
+    (:func:`_available`) warns (``UserWarning``), never silently, and
+    falls back to those present; a request for more than one that falls
+    back to one warns again."""
+    dev = _device.resolve(device)
+    avail = _available(dev)
     want = 1 if devices is None else int(devices)
     if want > avail:
         warnings.warn(
@@ -57,7 +70,4 @@ def mesh_for_sweep(n_trials: Optional[int] = None,
                 f"(requested {devices} devices, usable {want})",
                 stacklevel=2)
         return None
-    raise NotImplementedError(
-        f"a sweep over {want} devices needs multi-device sweeps, which "
-        "the port does not have yet (ROADMAP.md); pass devices=1 (or "
-        "none) to run it on one device")
+    return _device_list(dev, want)

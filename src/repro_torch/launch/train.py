@@ -1,4 +1,5 @@
-"""Training driver: an end-to-end train loop for a dense ``--arch``.
+"""Training driver: an end-to-end train loop for any ported ``--arch``
+(the dense, ssm and hybrid families).
 
     python -m repro_torch.launch.train --arch stablelm-12b [--smoke] \\
         [--steps 20] [--batch 4] [--seq-len 64] [--microbatches 1] \\

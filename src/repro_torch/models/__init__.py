@@ -1,7 +1,7 @@
 """Model registry: family -> module (counterpart of ``repro.models``).
 
-The port runs the dense, ssm and hybrid families so far, and trains
-the dense family (:func:`loss_fn`). Every other family raises
+The port runs and trains (:func:`loss_fn`) the dense, ssm and hybrid
+families so far. Every other family raises
 ``NotImplementedError`` naming the ROADMAP item that brings it
 (``configs.base.UNPORTED_FAMILIES``). The functions take the
 model module where the JAX package takes its parameter tree.
@@ -38,21 +38,12 @@ def forward(cfg: ModelConfig, params, batch):
     return get_module(cfg).forward(cfg, params, batch["tokens"])
 
 
-# families whose loss the port can differentiate on the card
-_TRAINED_FAMILIES = ("dense",)
-
-
 def loss_fn(cfg: ModelConfig, params, batch):
-    """Mean next-token CE of ``batch`` (float32, 0-d, differentiable).
-    The dense family only: the ssm and hybrid forwards run the
-    ``ssd_chunk`` and ``lru_scan`` kernels, which have no backward."""
-    module = get_module(cfg)
-    if cfg.family not in _TRAINED_FAMILIES:
-        raise NotImplementedError(
-            f"loss_fn of the {cfg.family!r} family is not ported yet: it "
-            f"comes with training for the ssm and hybrid families "
-            f"(ROADMAP.md, queue 1)")
-    return module.loss_fn(cfg, params, batch)
+    """Mean next-token CE of ``batch`` (float32, 0-d, differentiable)
+    through the family's training route: attention's plain path, the
+    ssm's plain intra-chunk term, the hybrid's ``lru_scan`` kernel with
+    its backward on the card."""
+    return get_module(cfg).loss_fn(cfg, params, batch)
 
 
 def prefill(cfg: ModelConfig, params, batch, pad_to: int = 0):

@@ -4,9 +4,12 @@ The port's counterpart of ``repro.models.common``. Each model module
 defines its parameters once as a tree of :class:`ParamDef` (shape,
 logical axes, initializer) with the JAX package's shapes, stacked
 layers included; the port keeps each layer's leaves in a submodule of
-its own, and :func:`init_` draws them one leaf (one layer's slice) at a
-time from an explicit ``torch.Generator`` on the target device, so no
-whole tree is ever built in float32. The abstract (dry-run) trees and
+its own, and :func:`init_` fills them one leaf (one layer's slice) at a
+time, in slices of ``draws.SLICE`` elements, so no whole tree is ever
+built in float32. Its draws are counter-based (``repro_torch.draws``):
+element i of leaf ``leaf`` of a model seeded ``seed`` is a function of
+(seed, leaf, i), so a model initialised on the card equals the one
+initialised on the CPU bit for bit. The abstract (dry-run) trees and
 logical sharding specs are not ported (ROADMAP, dry-run item).
 """
 from __future__ import annotations
@@ -18,6 +21,8 @@ from typing import Any, Optional, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from repro_torch import draws
 
 Tree = Any
 
@@ -64,23 +69,34 @@ def count_params(defs: Tree) -> int:
 
 
 @torch.no_grad()
-def init_(t: torch.Tensor, d: ParamDef, gen: torch.Generator) -> None:
-    """Fill ``t`` in place from definition ``d``. ``t`` is the whole
-    leaf or one layer's slice of a stacked leaf; the scale is taken
-    from ``d.shape``, so a slice is drawn like its part of the stacked
-    leaf. The draw is float32 of ``t``'s size, then cast."""
+def init_(t: torch.Tensor, d: ParamDef, seed: int, leaf: int,
+          start: int = 0) -> None:
+    """Fill ``t`` in place from definition ``d``: elements ``start ..``
+    of leaf number ``leaf`` (its place in the definition tree) of a
+    model seeded ``seed``. ``t`` is the whole leaf or one layer's slice
+    of a stacked leaf (``start`` its first element in the stack); the
+    scale is taken from ``d.shape``, so a slice is drawn like its part
+    of the stacked leaf, and the values do not depend on how the leaf
+    is cut. "normal" draws ``draws.normals`` in float64 on ``t``'s
+    device, then scales in float32 and casts; "lru_lambda" is drawn
+    and transformed on the CPU (its ``log`` and ``expm1`` round
+    differently on the card) and copied."""
     if d.init == "zeros":
         t.zero_()
     elif d.init == "ones":
         t.fill_(1.0)
     elif d.init == "lru_lambda":
-        u = torch.rand(t.shape, generator=gen, device=t.device)
-        u = 0.9 + u * (0.999 - 0.9)
-        t.copy_(torch.log(torch.expm1(-torch.log(u))))
+        u = draws.uniforms(draws.key(seed, leaf), start, t.numel(), "cpu")
+        u = 0.9 + u.float() * (0.999 - 0.9)
+        t.copy_(torch.log(torch.expm1(-torch.log(u))).reshape(t.shape))
     elif d.init == "normal":
         scale = d.scale if d.scale is not None \
             else 1.0 / math.sqrt(_fan_in(d.shape))
-        t.copy_(torch.randn(t.shape, generator=gen, device=t.device) * scale)
+        k, flat = draws.key(seed, leaf), t.view(-1)
+        for i in range(0, flat.numel(), draws.SLICE):
+            n = min(draws.SLICE, flat.numel() - i)
+            x = draws.normals(k, start + i, n, t.device)
+            flat[i:i + n] = x.to(torch.float32).mul_(scale)
     else:
         raise ValueError(f"unknown init {d.init!r}")
 

@@ -15,7 +15,7 @@ import torch
 
 from repro_torch import device as _device
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import common, dense, hybrid, ssm
+from repro_torch.models import dense, hybrid, ssm
 
 _MODELS = {"dense": (dense.DenseLM, dense.param_defs),
            "ssm": (ssm.MambaLM, ssm.param_defs),
@@ -42,6 +42,31 @@ def _keys(tree: dict) -> dict:
             for k, v in tree.items()}
 
 
+def _check_keys(cfg: ModelConfig, tree: dict, defs: dict, what: str):
+    if _keys(tree) != _keys(defs):
+        raise ValueError(f"{what} tree keys {_keys(tree)} do not match "
+                         f"the {cfg.name} definition {_keys(defs)}")
+
+
+def _leaf_pairs(model, tree: dict, defs: dict):
+    """(parameter, tensor, name) for every leaf of ``tree``, a stacked
+    leaf split into its layers (``model.leaf`` names the parameter);
+    raises on a stack of the wrong depth."""
+    for name, a in tree.items():
+        if not isinstance(a, dict):
+            yield model.leaf(name), to_tensor(a), name
+            continue
+        for lname, la in a.items():
+            t = to_tensor(la)
+            n = defs[name][lname].shape[0]
+            if t.dim() == 0 or t.shape[0] != n:
+                raise ValueError(f"{name}.{lname}: expected {n} stacked "
+                                 f"layers, got shape {tuple(t.shape)}")
+            for li in range(n):
+                yield model.leaf(lname, li, name), t[li], \
+                    f"{name}.{lname}[{li}]"
+
+
 @torch.no_grad()
 def params_from_numpy(cfg: ModelConfig, tree: dict, device):
     """The port's module for ``cfg`` on ``device`` with the values of
@@ -55,30 +80,13 @@ def params_from_numpy(cfg: ModelConfig, tree: dict, device):
     cls, param_defs = _MODELS[cfg.family]
     model = cls(cfg, device=_device.resolve(device))
     defs = param_defs(cfg)
-    if _keys(tree) != _keys(defs):
-        raise ValueError(f"parameter tree keys {_keys(tree)} do not match "
-                         f"the {cfg.name} definition {_keys(defs)}")
-
-    def put(dst: torch.Tensor, src: torch.Tensor, name: str):
+    _check_keys(cfg, tree, defs, "parameter")
+    for dst, src, name in _leaf_pairs(model, tree, defs):
         if tuple(src.shape) != tuple(dst.shape) or src.dtype != dst.dtype:
             raise ValueError(f"{name}: expected {dst.dtype} "
                              f"{tuple(dst.shape)}, got {src.dtype} "
                              f"{tuple(src.shape)}")
         dst.copy_(src)
-
-    for name, a in tree.items():
-        if isinstance(a, dict):
-            for lname, la in a.items():
-                t = to_tensor(la)
-                n = defs[name][lname].shape[0]
-                if t.dim() == 0 or t.shape[0] != n:
-                    raise ValueError(f"{name}.{lname}: expected {n} stacked "
-                                     f"layers, got shape {tuple(t.shape)}")
-                for li in range(n):
-                    put(model.leaf(lname, li, name), t[li],
-                        f"{name}.{lname}[{li}]")
-        else:
-            put(model.leaf(name), to_tensor(a), name)
     return model
 
 
@@ -87,21 +95,30 @@ def train_state_from_numpy(cfg: ModelConfig, tree: dict, device) -> dict:
     """The port's train state (``trainer.init_train_state``'s layout) on
     ``device`` from the JAX package's: ``{"params", "opt": {"m", "v",
     "step"}}`` with numpy leaves (or tensors), m and v shaped like the
-    parameters and split into layers the same way. The moments keep
-    their own type (``moment_dtype``); the parameters require grad."""
+    parameters and split into layers the same way (``layers``, or the
+    hybrid's ``rec`` and ``attn`` stacks). Every moment has the one
+    type ``moment_dtype`` gave it, whatever its parameter's type (the
+    hybrid's float32 ``lam`` has bfloat16 moments when the others do,
+    as in JAX); the parameters require grad."""
     model = params_from_numpy(cfg, tree["params"], device)
     model.requires_grad_(True)
-    names = {v: k for k, v in common.DTYPES.items()}
+    names = {id(p): n for n, p in model.named_parameters()}
+    defs = _MODELS[cfg.family][1](cfg)
 
     def moments(mt: dict) -> dict:
-        # a module of the moments' type holds them, split and checked as
-        # the parameters are, under the parameters' names
-        first = next(iter(mt.values()))
-        first = next(iter(first.values())) if isinstance(first, dict) \
-            else first
-        dtype = names[to_tensor(first).dtype]
-        held = params_from_numpy(cfg.replace(dtype=dtype), mt, device)
-        return {n: p.detach() for n, p in held.named_parameters()}
+        # keyed by the parameters' names, each checked against its
+        # parameter's shape; one type for all
+        _check_keys(cfg, mt, defs, "moment")
+        out = {}
+        for p, src, name in _leaf_pairs(model, mt, defs):
+            if tuple(src.shape) != tuple(p.shape):
+                raise ValueError(f"moment {name}: expected "
+                                 f"{tuple(p.shape)}, got {tuple(src.shape)}")
+            out[names[id(p)]] = src.to(p.device).clone()
+        dtypes = {t.dtype for t in out.values()}
+        if len(dtypes) != 1:
+            raise ValueError(f"moments of more than one type: {dtypes}")
+        return {n: out[n] for n in names.values()}
 
     opt = tree["opt"]
     step = to_tensor(np.asarray(opt["step"])).to(torch.int32)

@@ -20,6 +20,7 @@ backward), and each layer under ``cfg.remat`` (:func:`_maybe_remat`).
 from __future__ import annotations
 
 import functools
+import math
 from typing import Optional, Tuple
 
 import torch
@@ -199,8 +200,8 @@ def init(cfg: ModelConfig, seed: int = 0, *, device=None) -> DenseLM:
     """Random parameters with the JAX package's initializers (normal
     with scale 1/sqrt(fan_in) of the stacked shape, zeros for the norm
     gains, 0.02 for the embedding), drawn leaf by leaf (one layer's
-    slice at a time) from a ``torch.Generator`` on ``device`` seeded
-    with ``seed``. The numbers differ from ``jax.random``'s."""
+    slice at a time) by :func:`init_leaves` from ``seed``, the same
+    bits on every device. The numbers differ from ``jax.random``'s."""
     dev = _device.resolve(device)
     return init_leaves(DenseLM(cfg, device=dev), param_defs(cfg), seed, dev)
 
@@ -208,20 +209,24 @@ def init(cfg: ModelConfig, seed: int = 0, *, device=None) -> DenseLM:
 @torch.no_grad()
 def init_leaves(model: nn.Module, defs: dict, seed: int,
                 device: torch.device) -> nn.Module:
-    """Fill ``model`` from ``defs`` with a ``torch.Generator`` on
-    ``device`` seeded with ``seed``: leaf by leaf in the order of
-    ``defs``, a stack (a dict of leaves stacked on a leading layer axis)
-    one layer's slice at a time. ``model.leaf(name, layer, stack)``
-    names each parameter."""
-    gen = torch.Generator(device=device)
-    gen.manual_seed(seed)
+    """Fill ``model`` from ``defs`` with the counter-based draws of
+    ``common.init_``: leaves numbered in the order of ``defs``, a stack
+    (a dict of leaves stacked on a leading layer axis) one layer's
+    slice at a time, each slice at its offset in the stacked leaf.
+    ``model.leaf(name, layer, stack)`` names each parameter; ``device``
+    is where the model lies."""
+    leaf = 0
     for name, d in defs.items():
-        if isinstance(d, dict):
-            for lname, ld in d.items():
+        for lname, ld in (d.items() if isinstance(d, dict)
+                          else [(None, d)]):
+            if lname is None:
+                common.init_(model.leaf(name), ld, seed, leaf)
+            else:
+                n = int(math.prod(ld.shape[1:]))
                 for li in range(ld.shape[0]):
-                    common.init_(model.leaf(lname, li, name), ld, gen)
-        else:
-            common.init_(model.leaf(name), d, gen)
+                    common.init_(model.leaf(lname, li, name), ld, seed,
+                                 leaf, start=li * n)
+            leaf += 1
     return model
 
 

@@ -16,11 +16,18 @@ pattern: a :class:`RecLayer` (:class:`RecMixer` and a dense MLP) or an
 per-layer layouts (gate matrices block-diagonal, ``w_a``/``w_i``
 (n_heads, R/n_heads, R/n_heads)). The JAX package stacks the recurrent
 and the attention layers' leaves on two leading axes (``rec`` and
-``attn``) and scans over groups. Not ported: ``loss_fn`` (the training
-slice) and the sharding constraints.
+``attn``) and scans over groups. Training (:func:`loss_fn`) takes a
+route of its own through :func:`hidden` (``train=True``): attention by
+``attend``'s plain path (``kernel=False``), as the JAX package trains
+through its jnp ``attend``; the RG-LRU by ``ops.lru_scan``, which on
+the card is the kernel with its backward (``lru_scan.LruScan``); and
+each (rec, rec, attn) group under ``cfg.remat``, the remainder layers
+without, as the JAX package remats its group scan. Not ported: the
+sharding constraints.
 """
 from __future__ import annotations
 
+import functools
 from typing import List, Optional, Tuple
 
 import torch
@@ -194,9 +201,9 @@ class HybridLM(nn.Module):
 @torch.no_grad()
 def init(cfg: ModelConfig, seed: int = 0, *, device=None) -> HybridLM:
     """Random parameters with the JAX package's initializers (``lam``
-    float32 in any model type), drawn leaf by leaf from a
-    ``torch.Generator`` on ``device`` seeded with ``seed``; the numbers
-    differ from ``jax.random``'s."""
+    float32 in any model type), drawn leaf by leaf by
+    ``dense.init_leaves`` from ``seed``, the same bits on every device;
+    the numbers differ from ``jax.random``'s."""
     dev = _device.resolve(device)
     return dense.init_leaves(HybridLM(cfg, device=dev), param_defs(cfg),
                              seed, dev)
@@ -212,21 +219,22 @@ def _embed(cfg: ModelConfig, model: HybridLM,
     return x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
 
 
-def _run_sequence(cfg: ModelConfig, model: HybridLM, x: torch.Tensor,
-                  on_rec=None, on_attn=None) -> torch.Tensor:
-    """The full-sequence pass; ``on_rec(conv, h)`` and ``on_attn(k, v)``
-    receive each layer's states in order."""
-    S = x.shape[1]
+def _run_sequence(cfg: ModelConfig, layers, x: torch.Tensor,
+                  positions: torch.Tensor, mask: torch.Tensor, *,
+                  kernel: bool = True, on_rec=None,
+                  on_attn=None) -> torch.Tensor:
+    """``layers`` in order over the full sequence; ``on_rec(conv, h)``
+    and ``on_attn(k, v)`` receive each layer's states in order.
+    ``kernel=False`` is the training route (attention's plain path)."""
     win = cfg.recurrent.local_window
-    positions = torch.arange(S, device=x.device)
-    mask = common.causal_mask(S, S, window=win, device=x.device)
-    for layer in model.layers:
+    for layer in layers:
         if isinstance(layer, RecLayer):
             o, (conv, h) = layer.mixer(x)
             if on_rec is not None:
                 on_rec(conv, h)
         else:
-            o, (k, v) = layer.attn(x, positions, mask, window=win)
+            o, (k, v) = layer.attn(x, positions, mask, window=win,
+                                   kernel=kernel)
             if on_attn is not None:
                 on_attn(k, v)
         x = x + o
@@ -234,10 +242,30 @@ def _run_sequence(cfg: ModelConfig, model: HybridLM, x: torch.Tensor,
     return x
 
 
-def hidden(cfg: ModelConfig, model: HybridLM,
-           tokens: torch.Tensor) -> torch.Tensor:
-    """The last layer's output before the final norm, (B, S, D)."""
-    return _run_sequence(cfg, model, _embed(cfg, model, tokens))
+def hidden(cfg: ModelConfig, model: HybridLM, tokens: torch.Tensor, *,
+           train: bool = False, on_rec=None,
+           on_attn=None) -> torch.Tensor:
+    """The last layer's output before the final norm, (B, S, D).
+    ``train=True`` is the differentiable route: attention's plain path
+    and each whole group of the pattern under ``cfg.remat``; the
+    serving route passes each layer's states to ``on_rec`` and
+    ``on_attn`` (:func:`_run_sequence`)."""
+    x = _embed(cfg, model, tokens)
+    S = x.shape[1]
+    positions = torch.arange(S, device=x.device)
+    mask = common.causal_mask(S, S, window=cfg.recurrent.local_window,
+                              device=x.device)
+    if not train:
+        return _run_sequence(cfg, model.layers, x, positions, mask,
+                             on_rec=on_rec, on_attn=on_attn)
+    g, _, _, _ = layer_layout(cfg)
+    n = len(cfg.recurrent.block_pattern)
+    body = dense._maybe_remat(cfg, functools.partial(
+        _run_sequence, cfg, kernel=False))
+    for gi in range(g):
+        x = body(model.layers[gi * n:(gi + 1) * n], x, positions, mask)
+    return _run_sequence(cfg, model.layers[g * n:], x, positions, mask,
+                         kernel=False)
 
 
 @torch.no_grad()
@@ -245,6 +273,14 @@ def forward(cfg: ModelConfig, model: HybridLM,
             tokens: torch.Tensor) -> torch.Tensor:
     """Scoring forward. tokens (B, S) -> logits (B, S, V)."""
     return dense.unembed(cfg, model, hidden(cfg, model, tokens))
+
+
+def loss_fn(cfg: ModelConfig, model: HybridLM, batch: dict) -> torch.Tensor:
+    """Mean next-token CE of ``batch["tokens"]`` (B, S), float32 0-d,
+    differentiable through the training route (:func:`hidden`)."""
+    tokens = batch["tokens"]
+    logits = dense.unembed(cfg, model, hidden(cfg, model, tokens, train=True))
+    return common.cross_entropy(logits[:, :-1], tokens[:, 1:])
 
 
 def init_decode_cache(cfg: ModelConfig, batch: int, context_len: int, *,
@@ -274,12 +310,12 @@ def prefill(cfg: ModelConfig, model: HybridLM, tokens: torch.Tensor,
     p % window) so ``serve_step`` can continue. The cache has a fixed
     size, so ``pad_to`` is ignored (as in the JAX package)."""
     B, S = tokens.shape
-    x = _embed(cfg, model, tokens)
     win = cfg.recurrent.local_window
     _, _, n_rec, n_attn = layer_layout(cfg)
+    dt = common.torch_dtype(cfg.dtype)
     cache = attention.init_cache(n_attn, B, win, cfg.n_kv_heads,
-                                 cfg.head_dim, x.dtype, device=x.device)
-    keep = torch.arange(S - min(S, win), S, device=x.device)
+                                 cfg.head_dim, dt, device=tokens.device)
+    keep = torch.arange(S - min(S, win), S, device=tokens.device)
     ring_slot = keep % win
     convs, hs, attn_layer = [], [], iter(range(n_attn))
 
@@ -292,7 +328,7 @@ def prefill(cfg: ModelConfig, model: HybridLM, tokens: torch.Tensor,
         cache["k"][ai][:, ring_slot] = k[:, keep]
         cache["v"][ai][:, ring_slot] = v[:, keep]
 
-    x = _run_sequence(cfg, model, x, on_rec, on_attn)
+    x = hidden(cfg, model, tokens, on_rec=on_rec, on_attn=on_attn)
     cache["kv_pos"][ring_slot] = keep.to(torch.int32)
     cache["conv"] = torch.stack(convs)
     cache["h"] = torch.stack(hs)

@@ -12,11 +12,16 @@ the model's type, as the JAX package does.
 package's per-layer layouts (``w_z``/``w_x`` (D, d_inner), ``w_B``/
 ``w_C`` (D, G·N), ``w_dt`` (D, H), ``conv_*`` (W, C), ``w_out``
 (d_inner, D)); the JAX package stacks them on a leading layer axis and
-scans. Not ported: ``loss_fn`` (the training slice) and the sharding
-specs of the cache.
+scans. Training (:func:`loss_fn`) takes a route of its own through
+:func:`hidden` (``train=True``): the intra-chunk term by the plain
+``ssd_chunk_torch``, which autograd differentiates (the kernel has no
+backward; the JAX package trains through its jnp ``y_diag``), and each
+layer under ``cfg.remat``, as the JAX package remats each layer. Not
+ported: the sharding specs of the cache.
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -26,6 +31,7 @@ from torch import nn
 from repro_torch import device as _device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels import ssd_chunk as _ssd_chunk
 from repro_torch.models import common, dense
 from repro_torch.models.common import ParamDef
 
@@ -124,8 +130,8 @@ def _heads(m: torch.Tensor, H: int) -> torch.Tensor:
 
 def ssd_scan(xdt: torch.Tensor, loga: torch.Tensor, Bm: torch.Tensor,
              Cm: torch.Tensor, chunk: int,
-             init_state: Optional[torch.Tensor] = None
-             ) -> Tuple[torch.Tensor, torch.Tensor]:
+             init_state: Optional[torch.Tensor] = None, *,
+             train: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
     """Chunked SSD. xdt (B,L,H,P) = dt*x; loga (B,L,H); Bm/Cm (B,L,G,N).
 
     Recurrence per head: h_t = exp(loga_t) h_{t-1} + xdt_t ⊗ B_t,
@@ -134,7 +140,8 @@ def ssd_scan(xdt: torch.Tensor, loga: torch.Tensor, Bm: torch.Tensor,
     The intra-chunk term is ``ops.ssd_chunk`` on the (B·c, q, H, ·)
     view of the chunks, so its Q is ``chunk``; its operands are float32
     (the JAX einsum casts x to float32 there), Bm/Cm broadcast to heads
-    without a copy when G = 1."""
+    without a copy when G = 1. ``train=True`` takes the plain
+    ``ssd_chunk_torch`` on any device instead (the training route)."""
     Bsz, L, H, P = xdt.shape
     G, N = Bm.shape[2], Bm.shape[3]
     if L % chunk:
@@ -147,7 +154,8 @@ def ssd_scan(xdt: torch.Tensor, loga: torch.Tensor, Bm: torch.Tensor,
     lc = loga.reshape(Bsz, c, q, H).float()
     Bf, Cf = Bm.float(), Cm.float()
     # ---- intra-chunk (quadratic dual form): the kernel ----
-    y_diag = kops.ssd_chunk(
+    chunk_fn = _ssd_chunk.ssd_chunk_torch if train else kops.ssd_chunk
+    y_diag = chunk_fn(
         xf.reshape(Bsz * c, q, H, P), lc.reshape(Bsz * c, q, H),
         _heads(Bf.reshape(Bsz * c, q, G, N), H),
         _heads(Cf.reshape(Bsz * c, q, G, N), H)).reshape(Bsz, c, q, H, P)
@@ -212,9 +220,10 @@ class MambaBlock(dense._Leaves):
         g = common.rms_norm(y * F.silu(z), self.gn, self.cfg.norm_eps)
         return g @ self.w_out
 
-    def forward(self, x: torch.Tensor):
+    def forward(self, x: torch.Tensor, *, train: bool = False):
         """Full-sequence mixer from zero states. x (B, L, D). Returns
-        (out, (conv states {"x", "B", "C"}, final SSM state))."""
+        (out, (conv states {"x", "B", "C"}, final SSM state));
+        ``train=True`` is :func:`ssd_scan`'s training route."""
         cfg = self.cfg
         d_inner, H, P, G, N = _dims(cfg)
         h = common.rms_norm(x, self.norm, cfg.norm_eps)
@@ -238,7 +247,7 @@ class MambaBlock(dense._Leaves):
             loga = F.pad(loga, (0, 0, 0, pad))
             Bmr = F.pad(Bmr, (0, 0, 0, 0, 0, pad))
             Cmr = F.pad(Cmr, (0, 0, 0, 0, 0, pad))
-        y, final = ssd_scan(xdt, loga, Bmr, Cmr, cfg.ssm.chunk)
+        y, final = ssd_scan(xdt, loga, Bmr, Cmr, cfg.ssm.chunk, train=train)
         y = y[:, :L] + xheads * self.D[None, None, :, None].to(xheads.dtype)
         out = self._gated_out(y.reshape(Bsz, L, d_inner), z)
         return out, ({"x": cs_x, "B": cs_B, "C": cs_C}, final)
@@ -292,8 +301,8 @@ class MambaLM(nn.Module):
 @torch.no_grad()
 def init(cfg: ModelConfig, seed: int = 0, *, device=None) -> MambaLM:
     """Random parameters with the JAX package's initializers, drawn leaf
-    by leaf (one layer's slice at a time) from a ``torch.Generator`` on
-    ``device`` seeded with ``seed``; the numbers differ from
+    by leaf (one layer's slice at a time) by ``dense.init_leaves`` from
+    ``seed``, the same bits on every device; the numbers differ from
     ``jax.random``'s."""
     dev = _device.resolve(device)
     return dense.init_leaves(MambaLM(cfg, device=dev), param_defs(cfg),
@@ -304,13 +313,21 @@ def init(cfg: ModelConfig, seed: int = 0, *, device=None) -> MambaLM:
 # Public model API
 # ---------------------------------------------------------------------------
 
-def hidden(cfg: ModelConfig, model: MambaLM,
-           tokens: torch.Tensor) -> torch.Tensor:
-    """The last layer's output before the final norm, (B, S, D)."""
+def _residual(block: MambaBlock, x: torch.Tensor,
+              train: bool = False) -> torch.Tensor:
+    return x + block(x, train=train)[0]
+
+
+def hidden(cfg: ModelConfig, model: MambaLM, tokens: torch.Tensor, *,
+           train: bool = False) -> torch.Tensor:
+    """The last layer's output before the final norm, (B, S, D).
+    ``train=True`` is the differentiable route: the plain intra-chunk
+    term and each layer under ``cfg.remat``."""
     x = dense.embed(cfg, model, tokens)
+    body = dense._maybe_remat(cfg, functools.partial(_residual, train=True)) \
+        if train else _residual
     for block in model.layers:
-        o, _ = block(x)
-        x = x + o
+        x = body(block, x)
     return x
 
 
@@ -319,6 +336,14 @@ def forward(cfg: ModelConfig, model: MambaLM,
             tokens: torch.Tensor) -> torch.Tensor:
     """Scoring forward. tokens (B, S) -> logits (B, S, V)."""
     return dense.unembed(cfg, model, hidden(cfg, model, tokens))
+
+
+def loss_fn(cfg: ModelConfig, model: MambaLM, batch: dict) -> torch.Tensor:
+    """Mean next-token CE of ``batch["tokens"]`` (B, S), float32 0-d,
+    differentiable through the training route (:func:`hidden`)."""
+    tokens = batch["tokens"]
+    logits = dense.unembed(cfg, model, hidden(cfg, model, tokens, train=True))
+    return common.cross_entropy(logits[:, :-1], tokens[:, 1:])
 
 
 def init_decode_cache(cfg: ModelConfig, batch: int, context_len: int, *,

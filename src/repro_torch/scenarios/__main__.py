@@ -20,7 +20,10 @@ through ``obs.export``. With ``--stream`` it goes through the stream
 engine (``repro_torch.api.run_stream``) instead, whose memory scales
 with ``--capacity`` rather than the trace length. ``sweep`` batches
 every (scenario, seed) trial, ragged job counts included, into one
-batched engine run (``api.scenario_sweep``). ``describe`` adds one-pass
+batched engine run (``core.sweep.scenario_table`` through
+``api.run_table``), or with ``--devices N``
+into N shards, one process per device (on the CPU, N host processes),
+and prints the devices it used. ``describe`` adds one-pass
 stream statistics (job counts, TE/BE split, the reader's drop counts)
 for scenarios with a registered streaming source. The tables are the
 JAX CLI's.
@@ -42,8 +45,9 @@ import numpy as np
 import torch
 
 from repro_torch import api, scenarios
+from repro_torch import device as _device
 from repro_torch.configs.cluster import ClusterSpec, SimConfig, WorkloadSpec
-from repro_torch.core import metrics
+from repro_torch.core import metrics, sweep
 
 
 def _cfg(args, seed=None) -> SimConfig:
@@ -162,22 +166,26 @@ def cmd_run(args) -> None:
 def cmd_sweep(args) -> None:
     seeds = [int(s) for s in args.seeds.split(",")]
     devices = 1 if args.mesh == "off" else args.devices
-    out = api.scenario_sweep(_cfg(args), args.names, seeds,
-                             devices=devices, device=args.device)
-    # the sweep ran on one device (mesh_for_sweep raises for more)
-    n_avail = (1 if args.device is not None
-               and torch.device(args.device).type != "cuda"
-               else torch.cuda.device_count())
-    print(f"ragged sweep: {len(args.names)} scenarios x {len(seeds)} "
+    cfg = _cfg(args)
+    device = _device.resolve(args.device)     # fail before the build
+    res = api.run_table(cfg, sweep.scenario_table(cfg, args.names, seeds),
+                        devices=devices, device=device)
+    nt = len(seeds)
+    # of the cards present; on the CPU the host's processes stand in for
+    # JAX's forced host devices, as many as the sweep started
+    n_avail = torch.cuda.device_count() if device.type == "cuda" \
+        else res.n_devices
+    print(f"ragged sweep: {len(args.names)} scenarios x {nt} "
           f"seeds, policy={args.policy} (seed-averaged), "
-          f"1/{n_avail} devices")
+          f"{res.n_devices}/{n_avail} devices")
     hdr = f"{'scenario':22s} | {'TE p50':>8s} {'TE p95':>8s} " \
           f"| {'BE p50':>8s} {'BE p95':>8s} | {'preempted':>9s}"
     print(hdr + "\n" + "-" * len(hdr))
     for i, name in enumerate(args.names):
-        te = np.nanmean(out["te_slowdown"][i], axis=0)
-        be = np.nanmean(out["be_slowdown"][i], axis=0)
-        pf = np.nanmean(out["preempted_frac"][i])
+        rows = slice(i * nt, (i + 1) * nt)
+        te = np.nanmean(res.stats["te_slowdown"][rows], axis=0)
+        be = np.nanmean(res.stats["be_slowdown"][rows], axis=0)
+        pf = np.nanmean(res.stats["preempted_frac"][rows])
         print(f"{name:22s} | {te[0]:8.2f} {te[1]:8.2f} "
               f"| {be[0]:8.2f} {be[1]:8.2f} | {pf * 100:8.1f}%")
 
@@ -254,9 +262,9 @@ def main(argv=None) -> None:
                    help="time advancement inside the batched sweep "
                         "(per-lane event jumps)")
     p.add_argument("--devices", type=int, default=None,
-                   help="cap the sweep at N devices (default: every "
-                        "device present; more than one is not ported "
-                        "and raises; loud fallback when fewer are "
+                   help="shard the sweep over N devices, one process "
+                        "each (default: one device; on the CPU, N host "
+                        "processes; loud fallback when fewer are "
                         "present)")
     p.add_argument("--mesh", default="auto", choices=("auto", "off"),
                    help="'off' forces the single-device sweep")

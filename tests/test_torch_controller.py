@@ -2,8 +2,9 @@
 the CPU at smoke size.
 
 Both controllers drive real train jobs of the dense smoke configs (the
-JAX suite's controller cases use vlm and ssm configs, which the port
-does not train yet) on their package's ``SchedulerCore``. Their event
+JAX suite's preempt/resume case uses a vlm config, which the port does
+not have yet) on their package's ``SchedulerCore``; the JAX suite's two
+cases that train the mamba2 smoke config run on the port as they are. Their event
 logs (without the checkpoint paths), preemption counts, finish times
 and slowdowns must be equal: the grace periods estimated from the live
 train state agree because the two states count the same bytes. Also
@@ -149,7 +150,7 @@ def test_te_latency_beats_fifo(tmp_path):
                                    device="cpu")
         c.submit(tcontroller.JobSpec("be0", cfg, False,
                                      np.array([8., 32., 8.]),
-                                     total_steps=30))
+                                     total_steps=12))
         te = c.submit(tcontroller.JobSpec("te0", cfg, True,
                                           np.array([4., 16., 4.]),
                                           total_steps=2, submit_tick=1))
@@ -167,6 +168,49 @@ def test_victim_selection_prefers_short_gp(tmp_path):
     assert short_gp.preempt_count >= 1 and long_gp.preempt_count == 0
     first = next(e for e in c.events if e["ev"] == "preempt")
     assert first["job"] == "be_short_gp" and first["gp"] == 1
+
+
+def test_te_latency_beats_fifo_on_the_ssm(tmp_path):
+    """The JAX suite's case on mamba2's smoke config, be0 cut from its 30
+    steps to 12 (6 ticks, still running when te0 arrives at tick 1)."""
+    cfg = tconfigs.get_smoke_config("mamba2-1.3b")
+
+    def run(policy):
+        c = tcontroller.Controller(n_nodes=1, node_cap=(32., 256., 8.),
+                                   policy=policy, steps_per_tick=2,
+                                   workdir=str(tmp_path / policy),
+                                   device="cpu")
+        c.submit(tcontroller.JobSpec("be0", cfg, False,
+                                     np.array([8., 32., 8.]),
+                                     total_steps=12))
+        te = c.submit(tcontroller.JobSpec("te0", cfg, True,
+                                          np.array([4., 16., 4.]),
+                                          total_steps=2, submit_tick=1))
+        c.run()
+        assert all(np.isfinite(j.losses).all() for j in c.jobs)
+        return c.slowdown(te)
+
+    assert run("fitgpp") < run("fifo")
+
+
+def test_victim_selection_prefers_short_gp_on_the_ssm(tmp_path):
+    """The JAX suite's case on mamba2's smoke config, its two BE jobs cut
+    from 40 steps to 16: grace periods of 5 and 1 ticks on 2 nodes, s =
+    4, a TE at tick 1: only the short-grace-period job is preempted."""
+    cfg = tconfigs.get_smoke_config("mamba2-1.3b")
+    c = tcontroller.Controller(n_nodes=2, node_cap=(32., 256., 8.),
+                               policy="fitgpp", s=4.0,
+                               workdir=str(tmp_path), device="cpu")
+    b1 = c.submit(tcontroller.JobSpec("be_long_gp", cfg, False,
+                                      np.array([8., 32., 8.]),
+                                      total_steps=16, gp_ticks=5))
+    b2 = c.submit(tcontroller.JobSpec("be_short_gp", cfg, False,
+                                      np.array([8., 32., 8.]),
+                                      total_steps=16, gp_ticks=1))
+    c.submit(tcontroller.JobSpec("te", cfg, True, np.array([4., 16., 4.]),
+                                 total_steps=2, submit_tick=1))
+    c.run()
+    assert b2.preempt_count == 1 and b1.preempt_count == 0
 
 
 def test_controller_uses_shared_core():

@@ -79,12 +79,14 @@ def test_module_walk_covers_obs_and_reference_engine():
 
 def test_module_walk_covers_the_sweep_layer():
     """The blocked-import walk reaches the batched engine, the sweep
-    fabric and its wrappers, the sweep's device choice and the
-    scenarios CLI."""
+    fabric and its wrappers, the sweep's device choice, the trial-axis
+    sharding and the scenarios CLI."""
     names = {m.name for m in pkgutil.walk_packages(repro_torch.__path__,
                                                    "repro_torch.")}
     assert {"repro_torch.core.sim_batch", "repro_torch.core.sweep_fabric",
             "repro_torch.core.sweep", "repro_torch.launch.mesh",
+            "repro_torch.sharding", "repro_torch.sharding.trials",
+            "repro_torch.draws",
             "repro_torch.scenarios.__main__"} <= names
 
 

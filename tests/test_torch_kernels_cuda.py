@@ -15,6 +15,7 @@ float32 and 5e-2 in bfloat16 (``ssd_chunk`` runs its products as
 about 2^-21 of an operand). ``schedule_step`` is bit-equal to its plain
 version on all 8 fields."""
 import json
+import math
 import os
 import subprocess
 import sys
@@ -540,15 +541,16 @@ def test_stream_engine_card_equals_cpu(cuda_device):
 
 @pytest.mark.cuda
 def test_kernel_wrappers_refuse_inputs_that_require_grad(cuda_device):
-    """The three model kernels have no backward: on an input that
+    """The flash and SSD kernels have no backward: on an input that
     requires grad, with grad mode on, each wrapper raises rather than
-    return a tensor without ``grad_fn``; under ``no_grad`` it launches."""
+    return a tensor without ``grad_fn``; under ``no_grad`` it launches.
+    The LRU kernel has one: a float32 input that requires grad goes
+    through ``LruScan`` (one launch, an output with ``grad_fn``), a
+    bfloat16 one is refused."""
     q, k, v = qkv((1, 128, 128, 4, 2, 32), torch.float32, cuda_device, 4)
     ssd = ssd_args((1, 64, 2, 16, 8, True), torch.float32, cuda_device, 5)
-    a = torch.rand((2, 8, 16), device=cuda_device)
     calls = {"flash_attention": (tops.flash_attention, (q, k, v)),
-             "ssd_chunk": (tops.ssd_chunk, ssd),
-             "lru_scan": (tops.lru_scan, (a, a))}
+             "ssd_chunk": (tops.ssd_chunk, ssd)}
     for name, (fn, args) in calls.items():
         before = tops.LAUNCHES[name]
         leaf = args[0].clone().requires_grad_(True)
@@ -559,8 +561,88 @@ def test_kernel_wrappers_refuse_inputs_that_require_grad(cuda_device):
         with torch.no_grad():
             fn(leaf, *args[1:])
         assert tops.LAUNCHES[name] == before + 1
+    a = torch.rand((2, 8, 16), device=cuda_device)
+    before = tops.LAUNCHES["lru_scan"]
+    h = tops.lru_scan(a.clone().requires_grad_(True), a)
+    assert h.grad_fn is not None
+    assert tops.LAUNCHES["lru_scan"] == before + 1
+    with pytest.raises(ValueError, match="float32"):
+        tops.lru_scan(a.bfloat16().requires_grad_(True), a.bfloat16())
+    assert tops.LAUNCHES["lru_scan"] == before + 1
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", LRU_SHAPES)
+def test_lru_scan_backward_matches_autograd(cuda_device, shape):
+    """``LruScan``'s gradients (one forward and one reverse launch)
+    against autograd through ``lru_scan_torch`` on the card: bit for
+    bit, since both do the same multiplies and adds (IEEE ``+`` and
+    ``*`` commute)."""
+    B, L, R, with_h0 = shape
+    rng = np.random.default_rng(L + R)
+
+    def t(x):
+        return torch.from_numpy(x.astype(np.float32)).to(cuda_device)
+
+    a = torch.sigmoid(t(rng.standard_normal((B, L, R))))
+    b = t(rng.standard_normal((B, L, R)) * 0.5)
+    h0 = t(rng.standard_normal((B, R))) if with_h0 else None
+    g = t(rng.standard_normal((B, L, R)))
+    grads = []
+    for fn, launches in ((tls.LruScan.apply, 2), (tls.lru_scan_torch, 0)):
+        ins = [x.clone().requires_grad_(True) for x in (a, b, h0)
+               if x is not None]
+        before = tops.LAUNCHES["lru_scan"]
+        out = fn(*ins) if with_h0 else fn(*ins, None)
+        grads.append(torch.autograd.grad(out, ins, g) + (out,))
+        assert tops.LAUNCHES["lru_scan"] - before == launches
+    torch.cuda.synchronize()
+    for got, want in zip(*grads):
+        assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["stablelm-12b", "mamba2-1.3b",
+                                  "recurrentgemma-9b"])
+def test_init_and_batches_on_card_equal_cpu(cuda_device, arch):
+    """``models.init`` and ``make_batch`` give the card the CPU's values
+    bit for bit (counter-based draws; tokens drawn on the CPU)."""
+    from repro_torch import models
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data import make_batch
+    cfg = get_smoke_config(arch)
+    card = models.init(cfg, 0, device=cuda_device).state_dict()
+    cpu = models.init(cfg, 0, device="cpu").state_dict()
+    assert list(card) == list(cpu)
+    for name in cpu:
+        assert card[name].device.type == "cuda"
+        assert torch.equal(card[name].cpu(), cpu[name]), name
+    for step in (0, 7):
+        tok = make_batch(cfg, 4, 64, 1, step, device=cuda_device)["tokens"]
+        assert torch.equal(tok.cpu(), make_batch(cfg, 4, 64, 1, step,
+                                                 device="cpu")["tokens"])
+
+
+@pytest.mark.cuda
+def test_full_width_stablelm_layer_init_on_card_equals_cpu(cuda_device):
+    """The last layer's slice of every stacked leaf of stablelm-12b at
+    its published widths (278M values, each at its offset in the
+    stacked leaf) is drawn alike on the card and on the CPU."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import common, dense
+    cfg = get_config("stablelm-12b")
+    defs = dense.param_defs(cfg)
+    leaf = list(defs).index("layers")
+    li = cfg.n_layers - 1
+    for name, d in defs["layers"].items():
+        n = math.prod(d.shape[1:])
+        got = []
+        for dev in (cuda_device, "cpu"):
+            t = torch.empty(d.shape[1:], dtype=torch.bfloat16, device=dev)
+            common.init_(t, d, 0, leaf, start=li * n)
+            got.append(t.cpu())
+        assert torch.equal(got[0], got[1]), name
+        leaf += 1
 def _smoke_train_steps(device, n=2):
     """``n`` float32 train steps of the dense smoke config from seed 0 on
     ``device``: (losses, parameters after the steps as CPU tensors)."""

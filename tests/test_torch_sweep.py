@@ -35,6 +35,7 @@ from repro_torch.core import sweep_fabric as tfabric
 from repro_torch.core.types import DONE
 from repro_torch.kernels import ops as tops
 from repro_torch.launch import mesh as tmesh
+from repro_torch.sharding import trials as tsharding
 
 pytestmark = pytest.mark.filterwarnings(
     "ignore:.*shard_map.*:DeprecationWarning")
@@ -407,26 +408,123 @@ class TestMeshForSweep:
         assert tmesh.mesh_for_sweep(8, device="cpu") is None
         assert tapi.mesh_for_sweep(8, devices=1, device="cpu") is None
 
-    def test_over_request_warns(self):
+    def test_over_request_warns(self, monkeypatch):
+        """On the CPU the host offers one process per core: a request
+        beyond them warns and falls back to them."""
+        monkeypatch.setattr(tmesh.os, "cpu_count", lambda: 2)
         with pytest.warns(UserWarning, match="requested"):
+            assert tmesh.mesh_for_sweep(64, devices=8, device="cpu") == \
+                ["cpu", "cpu"]
+        monkeypatch.setattr(tmesh.os, "cpu_count", lambda: 1)
+        with pytest.warns(UserWarning, match="SINGLE-DEVICE"):
             assert tmesh.mesh_for_sweep(64, devices=8, device="cpu") is None
 
     def test_capped_by_n_trials(self):
         with warnings.catch_warnings():
             warnings.simplefilter("error")
             assert tmesh.mesh_for_sweep(1, device="cpu") is None
+            assert tmesh.mesh_for_sweep(1, devices=1, device="cpu") is None
+            assert tmesh.mesh_for_sweep(3, devices=2, device="cpu") == \
+                ["cpu", "cpu"]
 
-    def test_several_cuda_devices_raise(self, monkeypatch):
+    def test_several_cuda_devices_are_granted(self, monkeypatch):
         """On a host with several cards a sweep runs on one unless more
-        are asked for; an explicit request for several raises."""
+        are asked for; a request for several that are present names
+        them, ``min(devices, n_trials)`` of them."""
         monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
         with warnings.catch_warnings():
             warnings.simplefilter("error")
             assert tmesh.mesh_for_sweep(8, device="cuda:0") is None
-        with pytest.raises(NotImplementedError, match="multi-device sweeps"):
-            tmesh.mesh_for_sweep(8, devices=2, device="cuda:0")
-        assert tmesh.mesh_for_sweep(8, devices=1, device="cuda:0") is None
-        assert tmesh.mesh_for_sweep(1, device="cuda:0") is None
+            assert tmesh.mesh_for_sweep(8, devices=2, device="cuda:0") == \
+                ["cuda:0", "cuda:1"]
+            assert tmesh.mesh_for_sweep(3, devices=4, device="cuda:0") == \
+                ["cuda:0", "cuda:1", "cuda:2"]
+            assert tmesh.mesh_for_sweep(8, devices=1,
+                                        device="cuda:0") is None
+            assert tmesh.mesh_for_sweep(1, device="cuda:0") is None
+
+
+def _selftest_table():
+    """The JAX sweep selftest's grid at half its jobs: burst-storm on 8
+    nodes, 32 jobs, 3 seeds x s in {0, 2, 4}, P = 1: 9 trials."""
+    _, tcfg = configs("fifo", n_jobs=32)
+    jobsets = [tscenarios.build("burst-storm", dataclasses.replace(
+        tcfg, seed=k)) for k in range(3)]
+    s = np.repeat(np.asarray([0.0, 2.0, 4.0], np.float32), 3)
+    seeds = np.tile(np.arange(3, dtype=np.uint32), 3)
+    return tcfg, tfabric.build_table(jobsets * 3, s, 1, seeds)
+
+
+def _same_result(a, b):
+    assert a.stats.keys() == b.stats.keys()
+    for k in a.stats:
+        assert a.stats[k].dtype == b.stats[k].dtype, k
+        assert np.array_equal(a.stats[k], b.stats[k], equal_nan=True), k
+    for k in ("lane_iterations", "lane_acting", "lane_drawn"):
+        assert np.array_equal(a.engine_stats[k], b.engine_stats[k]), k
+
+
+@pytest.fixture
+def one_thread():
+    """torch on one thread here and, through ``ShardPool``'s rule, in
+    each worker: the engine's tiny ops under the test runner's parallel
+    workers otherwise fight them for the cores (a sharded run about 3x
+    slower beside six busy processes on eight cores)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def test_sharded_run_table_equals_one_device(one_thread):
+    """The JAX selftest's uneven grid (9 trials on 4 processes: 3
+    sentinel trials) sharded over 4 CPU processes (``run_table``'s
+    sharded path, one pool for the six runs) equals the one-device
+    run bit for bit, per-job stats and per-lane counters, for fifo,
+    fitgpp and lrtp in event and tick mode (draws included: fitgpp takes
+    random fallbacks here, counter-based on the trial)."""
+    from repro_torch.sharding import ShardPool
+    cfg, table = _selftest_table()
+    drawn = 0
+    with ShardPool(["cpu"] * 4) as pool:
+        for policy in ("fifo", "fitgpp", "lrtp"):
+            pcfg = dataclasses.replace(cfg, policy=policy)
+            for mode in MODES:
+                one = tfabric.run_table(pcfg, table, time_mode=mode,
+                                        out="per_job", device="cpu")
+                got = pool.run(pcfg, table, time_mode=mode, out="per_job")
+                _same_result(got, one)
+                assert (got.n_trials, got.n_padded, got.n_devices) == \
+                    (9, 3, 4)
+                assert (one.n_padded, one.n_devices) == (0, 1)
+                assert len(got.engine_stats["shards"]) == 4
+                drawn += int(one.engine_stats["lane_drawn"].sum())
+    assert drawn > 0
+
+
+def test_run_table_devices_shards_over_processes(one_thread):
+    """``devices=2`` on the CPU starts two processes for the call: the
+    percentile summary equals the one-device run, and the result says
+    how the table was split."""
+    cfg, table = _selftest_table()
+    cfg = dataclasses.replace(cfg, policy="fitgpp")
+    one = tfabric.run_table(cfg, table, device="cpu")
+    got = tfabric.run_table(cfg, table, devices=2, device="cpu")
+    _same_result(got, one)
+    assert (got.n_trials, got.n_padded, got.n_devices) == (9, 1, 2)
+    assert got.engine_stats["passes"] == sum(
+        sh["passes"] for sh in got.engine_stats["shards"])
+
+
+def test_shard_table_pads_and_cuts_in_trial_order():
+    cfg, table = _selftest_table()
+    shards = tsharding.shard_table(table, 4)
+    assert [int(sh.s.shape[0]) for sh in shards] == [3, 3, 3, 3]
+    s = torch.cat([sh.s for sh in shards])
+    assert torch.equal(s[:9], table.s) and not s[9:].any()
+    valid = torch.cat([sh.jobs.valid for sh in shards])
+    assert torch.equal(valid[:9], table.jobs.valid) and not valid[9:].any()
+    assert all(sh.n_valid == 9 for sh in shards)
 
 
 def test_api_exports_the_sweep_surface():
