@@ -13,20 +13,20 @@ two main paths through the entry points a user calls:
   backfill), then the paper's FIFO-vs-FitGpp comparison at the paper's
   scale (84 nodes, 2**16 jobs) through
   ``repro_torch.api.compare_policies``, then gang-heavy on the same 84
-  nodes (2**13 jobs) under fifo, fitgpp and fitgpp with backfill
+  nodes (2**12 jobs) under fifo, fitgpp and fitgpp with backfill
   through ``repro_torch.api.run_experiment``; then the host numpy
   reference engine (``engine="reference"``) on the paper's cell, the
   same-host baseline, held against the torch engine's results; then
-  the torch engine traced on the same cell (its event ring; fifo at
-  2**14 jobs, fitgpp at 2**13), each stream validated, decomposed per
+  the torch engine traced on the same cell (its event ring; fifo and
+  fitgpp at 2**13 jobs), each stream validated, decomposed per
   job and held against the reference engine's stream; then fitgpp on
   phase paper's 2**16 jobs through the stream engine
   (``repro_torch.core.stream.StreamEngine``: a pool of 2,688 job slots,
   closed-loop admission, traced), held against phase paper's run job
   for job and against the reference engine's events job for job;
 * the sweep fabric: the batched engine's kernel path against its plain
-  path (phase sweep_engine), then Fig. 4 at the paper's scale (fitgpp,
-  five values of s, 4 workloads of 2**16 jobs on 84 nodes) as one
+  path (phase sweep_engine), then Fig. 4 on the paper's 84 nodes
+  (fitgpp, five values of s, 4 workloads of 2**14 jobs) as one
   ``repro_torch.core.sweep_fabric.run_table`` on the card, its s = 4
   trials held against the reference engine;
 * dense-LM serving: stablelm-12b at its published widths and full depth
@@ -62,7 +62,8 @@ two main paths through the entry points a user calls:
 Phase sweep_engine also runs a small table as 2 shards in 2 processes
 on the card (``repro_torch.sharding.trials``) against one process; the
 lru_kernel phase holds the kernel's backward against autograd through
-the plain version.
+the plain version and reports the route (tma or simple) each case
+took, every case bit for bit.
 
 Each main path runs with every launch count set to 0 just before it and
 read just after. Prints one JSON line per phase, then a
@@ -119,16 +120,19 @@ KERNEL_MANY_NODES_TIMED = (1, 1024, 8192)
 GANG_SCENARIOS = ("gang-heavy", "gang-trace-mix", "philly-sample",
                   "pai-sample")
 GANG_ENGINE_JOBS = 384
-# phase gang: the paper's 84 nodes with an eighth of its backlog; at
+# phase gang: the paper's 84 nodes with a sixteenth of its backlog; at
 # 2**16 jobs the whole script took 902 s of its 1200 s limit on a slow
 # host, and with phases sweep_engine and sweep 1370.8 s at 2**15; cut
-# from 2**14 to pay for phases train and controller
-GANG_JOBS = 2 ** 13
+# from 2**14 to pay for phases train and controller, and from 2**13
+# after a host whose host-bound phases ran ~1.5x slower than usual took
+# the whole script past its limit
+GANG_JOBS = 2 ** 12
 # phase trace's runs (and the reference engine's traced runs they are
-# held against): fifo cut to 2**15 for the script's limit, and to 2**14
-# to pay for phases train and controller; fitgpp at 2**13, its traced
-# run at the paper's 2**16 being phase stream's
-TRACE_JOBS = {"fifo": 2 ** 14, "fitgpp": 2 ** 13}
+# held against): fifo cut to 2**15 for the script's limit, to 2**14 to
+# pay for phases train and controller, and to 2**13 for the slow host
+# that phase gang's note names; fitgpp at 2**13, its traced run at the
+# paper's 2**16 being phase stream's
+TRACE_JOBS = {"fifo": 2 ** 13, "fitgpp": 2 ** 13}
 # phase stream: fitgpp on phase paper's JobSet through the stream engine,
 # its pool stream.default_capacity at 84 nodes and P = 1 (32 slots a
 # node), doubled if it spills
@@ -149,12 +153,15 @@ ENGINE_POLICIES = ("fifo", "fitgpp", "minsize", "lrtp", "srtp", "rand")
 # batched run_table on the card
 SWEEP_S = (0.0, 1.0, 2.0, 4.0, 8.0)
 # cut from the figure's 8 workloads to 4 (20 trials) for the script's
-# 1200 s limit (1370.8 s with 8 and phases gang and trace uncut)
+# 1200 s limit (1370.8 s with 8 and phases gang and trace uncut), and
+# from 2**16 jobs to 2**14 for the slow host that phase gang's note
+# names (the batched run's wall follows its iterations, which follow the
+# backlog, not the number of trials)
 SWEEP_WORKLOADS = 4
-SWEEP_JOBS = PAPER_JOBS
-# its pass shapes, held bit-equal and timed in phase kernel: the
-# figure's 40 trials and the 20 phase sweep runs
-KERNEL_SWEEP_SHAPES = [(len(SWEEP_S) * w, SWEEP_JOBS, PAPER_NODES)
+SWEEP_JOBS = 2 ** 14
+# the figure's pass shapes at the paper's backlog, held bit-equal and
+# timed in phase kernel: its 40 trials and 20 of them
+KERNEL_SWEEP_SHAPES = [(len(SWEEP_S) * w, PAPER_JOBS, PAPER_NODES)
                        for w in (8, SWEEP_WORKLOADS)]
 # phase sweep_engine: the JAX sweep selftest's grid (burst-storm, 8
 # nodes, 64 jobs, 3 seeds x s in {0, 2, 4}, P = 1) padded with one
@@ -948,8 +955,8 @@ def check_decomposition(events, finish, exec_total, n_jobs, where):
 
 
 def phase_trace(torch, np, runs):
-    """The torch engine traced on the paper's cell under fifo (2**14
-    jobs) and fitgpp (2**13, TRACE_JOBS; its traced run at 2**16 is
+    """The torch engine traced on the paper's cell under fifo and
+    fitgpp (2**13 jobs, TRACE_JOBS; its traced run at 2**16 is
     phase stream's), event mode, the default ring capacity, through
     ``api.run_experiment(trace=True)``: no overflow, a valid stream,
     the slowdown decomposition's identity for every job (service equal
@@ -1326,7 +1333,7 @@ def sweep_sharded_check(np):
 
 def phase_sweep(torch, np):
     """The slice at full width: Fig. 4 (fitgpp, s in SWEEP_S, P = 1,
-    SWEEP_WORKLOADS workloads of 2**16 jobs on 84 nodes, event mode) as
+    SWEEP_WORKLOADS workloads of SWEEP_JOBS jobs on 84 nodes, event mode) as
     one ``sweep_fabric.run_table(out="per_job")`` on the card, pooled
     per s; the s = 4 lanes held job for job against the port's numpy
     reference engine on the same host (finish ticks through the Eq. 5
@@ -1623,14 +1630,19 @@ SSM_ARCH = "mamba2-1.3b"
 SSD_MAIN_SHAPE = (4 * 2048 // 256, 256, 64, 64, 128, 1)
 SCAN_TOL = {"float32": 1e-4, "bfloat16": 5e-2}
 # lru_scan: the JAX suite's shapes (TestLruScan), each in f32 and bf16,
-# then the recurrentgemma-9b prefill shape, with and without h0, and a
-# ragged one, (B, L, R, h0)
+# then the recurrentgemma-9b prefill shape, with and without h0, a
+# ragged one (R 4001: the simple route) and the tma route's ragged L,
+# (B, L, R, h0). The kernel's route follows from R, the type and the
+# alignment (lru_scan._route): R 130 in f32 and R 4001 take the simple
+# route, the rest the tma route.
 LRU_SHAPES = [(2, 256, 512, False), (2, 300, 130, True),
               (1, 64, 1024, True), (3, 1024, 64, False)]
 HYBRID_ARCH = "recurrentgemma-9b"
 LRU_MAIN_SHAPE = (4, 4096, 4096, False)
-LRU_MAIN_CASES = [LRU_MAIN_SHAPE, (4, 4096, 4096, True),
-                  (3, 4099, 4001, True)]
+LRU_RAGGED_L = (1, 4099, 4096, True)
+LRU_SIMPLE_SHAPE = (3, 4099, 4001, True)
+LRU_MAIN_CASES = [LRU_MAIN_SHAPE, (4, 4096, 4096, True), LRU_SIMPLE_SHAPE,
+                  LRU_RAGGED_L]
 # lru_scan's backward (``LruScan``): the gradients held against autograd
 # through the plain version on the card at the JAX suite's shapes, a
 # ragged one, and phase train_hybrid's shape (1 x 4096 tokens, lru width
@@ -1639,7 +1651,8 @@ LRU_MAIN_CASES = [LRU_MAIN_SHAPE, (4, 4096, 4096, True),
 # and each of da, db, dh0 is one product or a copy; SCAN_TOL's f32 1e-4
 # is checked as well. The reverse launch is timed at the training shape.
 LRU_TRAIN_SHAPE = (1, 4096, 4096, False)
-LRU_GRAD_CASES = LRU_SHAPES + [(3, 4099, 4001, True), LRU_TRAIN_SHAPE]
+LRU_GRAD_CASES = LRU_SHAPES + [LRU_SIMPLE_SHAPE, LRU_RAGGED_L,
+                               LRU_TRAIN_SHAPE]
 
 
 def check_close(torch, name, got, want, tol):
@@ -1772,16 +1785,26 @@ def lru_bound_ms(shape, itemsize):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def lru_route(ls, a, b, out):
+    """The route ``lru_scan_cuda`` took for these tensors."""
+    return ls._route(a.shape[2], a.dtype, a.data_ptr(), b.data_ptr(),
+                     out.data_ptr())
+
+
 def phase_lru_kernel(torch):
     """The lru_scan kernel against its plain version at the JAX suite's
-    shapes (f32 1e-4, bf16 5e-2) and at the recurrentgemma prefill
-    shape, with and without h0, and a ragged one (f32), then timed at
-    the prefill shape without h0 (as the prefill calls it)."""
+    shapes (f32 1e-4, bf16 5e-2, and bit for bit) and at the
+    recurrentgemma prefill shape, with and without h0, and ragged ones
+    (f32), each with the route it took; then timed: the f32 forward at
+    the prefill shape without h0 (as the prefill calls it) and at the
+    training shape, the bf16 forward at the prefill shape, and the
+    simple route at its ragged shape, each beside its bound and each
+    timed input's output held against the plain version as well."""
     from repro_torch.kernels import lru_scan as ls
     dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
     cases = [(s, d) for s in LRU_SHAPES for d in dtypes] \
         + [(s, "float32") for s in LRU_MAIN_CASES]
-    max_err, exact = {}, True
+    max_err, exact, routes = {}, True, []
     for seed, (shape, dname) in enumerate(cases):
         a, b, h0 = lru_inputs(torch, shape, dtypes[dname], seed)
         out = ls.lru_scan_cuda(a, b, h0)
@@ -1789,42 +1812,71 @@ def phase_lru_kernel(torch):
         torch.cuda.synchronize()
         err = check_close(torch, f"lru_scan {shape} {dname}", out, ref,
                           SCAN_TOL[dname])
-        exact = exact and bool(torch.equal(out, ref))
+        same = bool(torch.equal(out, ref))
+        exact = exact and same
+        routes.append({"shape": list(shape), "dtype": dname,
+                       "route": lru_route(ls, a, b, out), "bit_equal": same})
         max_err[dname] = max(max_err.get(dname, 0.0), err)
         del a, b, h0, out, ref
-    shape = LRU_MAIN_SHAPE
-    a, b, _ = lru_inputs(torch, shape, torch.float32, 100)
-    ms = time_ms(torch, lambda: ls.lru_scan_cuda(a, b))
-    plain_ms = time_ms(torch, lambda: ls.lru_scan_torch(a, b), reps=5)
-    bound, bound_by = lru_bound_ms(shape, 4)
-    del a, b
+    timed = {}
+    for key, shape, dname in (("prefill", LRU_MAIN_SHAPE, "float32"),
+                              ("train", LRU_TRAIN_SHAPE, "float32"),
+                              ("prefill_bf16", LRU_MAIN_SHAPE, "bfloat16"),
+                              ("simple", LRU_SIMPLE_SHAPE, "float32")):
+        a, b, h0 = lru_inputs(torch, shape, dtypes[dname], 100)
+        out = ls.lru_scan_cuda(a, b, h0)
+        ref = ls.lru_scan_torch(a, b, h0)
+        torch.cuda.synchronize()
+        err = check_close(torch, f"lru_scan timed {shape} {dname}", out,
+                          ref, SCAN_TOL[dname])
+        max_err[dname] = max(max_err[dname], err)
+        same = bool(torch.equal(out, ref))
+        exact = exact and same
+        bound, bound_by = lru_bound_ms(shape, a.element_size())
+        timed[key] = {"shape": list(shape), "dtype": dname,
+                      "route": lru_route(ls, a, b, out), "bit_equal": same,
+                      "ms": time_ms(torch, lambda: ls.lru_scan_cuda(a, b, h0)),
+                      "bound_ms": bound, "bound_by": bound_by}
+        if key == "prefill":
+            plain_ms = time_ms(torch, lambda: ls.lru_scan_torch(a, b),
+                               reps=5)
+        del a, b, h0, out, ref
     backward = lru_backward_checks(torch, ls)
+    main = timed["prefill"]
     result = {"name": "lru_scan", "route": "cuda",
               "source": "src/repro_torch/kernels/csrc/lru_scan.cu",
               "replaces": "src/repro/kernels/lru_scan.py:59",
-              "max_abs_err": max(max_err.values()), "ms": ms,
-              "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
-              "library_ms": None, "backward_ms": backward["ms"],
+              "max_abs_err": max(max_err.values()), "ms": main["ms"],
+              "plain_ms": plain_ms, "bound_ms": main["bound_ms"],
+              "bound_by": main["bound_by"], "library_ms": None,
+              "backward_ms": backward["ms"],
               "backward_bound_ms": backward["bound_ms"],
               "backward_shape": backward["shape"]}
     emit({"phase": "lru_kernel", "cases": len(cases),
           "max_abs_err_by_dtype": max_err, "tolerance": SCAN_TOL,
-          "bit_equal_all_cases": exact,
-          "timed_shape": dict(zip(("B", "L", "R"), shape[:3]),
+          "bit_equal_all_cases": exact and backward["bit_equal_all_cases"],
+          "forward_bit_equal_all_cases": exact,
+          "routes": routes, "timed": timed,
+          "timed_shape": dict(zip(("B", "L", "R"), LRU_MAIN_SHAPE[:3]),
                               dtype="float32", h0=False),
           "plain_reps": 5,
           "library_call": "none: no single PyTorch call computes it",
           "backward": backward, **result})
+    check(exact and backward["bit_equal_all_cases"],
+          "lru_scan differs from its plain version in some bit")
+    check({r["route"] for r in routes} == {"tma", "simple"},
+          "lru_scan's checked cases did not take both routes")
     return result
 
 
 def lru_backward_checks(torch, ls):
     """``LruScan``'s gradients (da, db, dh0) against autograd through
     ``lru_scan_torch`` on the card at LRU_GRAD_CASES, with the launches
-    each takes (one forward, one reverse); then the reverse launch timed
-    at LRU_TRAIN_SHAPE, queued as the forward is, beside its bound
-    (a and the upstream gradient read, lam written once)."""
-    max_err, exact, launches = 0.0, True, set()
+    each takes (one forward, one reverse) and the reverse launch's
+    route; then the reverse launch timed at LRU_TRAIN_SHAPE, queued as
+    the forward is, beside its bound (a and the upstream gradient read,
+    lam written once)."""
+    max_err, exact, launches, routes = 0.0, True, set(), []
     for seed, shape in enumerate(LRU_GRAD_CASES):
         a, b, h0 = lru_inputs(torch, shape, torch.float32, 200 + seed)
         gen = torch.Generator(device="cuda")
@@ -1842,11 +1894,17 @@ def lru_backward_checks(torch, ls):
                 launches.add(ls.build.LAUNCHES["lru_scan"] - before)
             del out, ins
         torch.cuda.synchronize()
+        same = True
         for got, want in zip(*grads):
             max_err = max(max_err, check_close(
                 torch, f"lru_scan backward {shape}", got, want,
                 SCAN_TOL["float32"]))
-            exact = exact and bool(torch.equal(got, want))
+            same = same and bool(torch.equal(got, want))
+        exact = exact and same
+        # the reverse launch reads a and g and writes a fresh lam
+        routes.append({"shape": list(shape),
+                       "route": lru_route(ls, a, g, grads[0][1]),
+                       "bit_equal": same})
         del a, b, h0, g, grads
     check(launches == {2}, f"LruScan took {sorted(launches)} launches for "
           "a forward and a backward, not 2")
@@ -1858,8 +1916,8 @@ def lru_backward_checks(torch, ls):
     del a, g
     return {"cases": len(LRU_GRAD_CASES), "max_abs_err": max_err,
             "bit_equal_all_cases": exact, "tolerance": SCAN_TOL["float32"],
-            "launches_per_call": 2, "shape": [B, L, R], "ms": ms,
-            "bound_ms": nbytes / PEAK_BYTES_PER_S * 1e3,
+            "routes": routes, "launches_per_call": 2, "shape": [B, L, R],
+            "ms": ms, "bound_ms": nbytes / PEAK_BYTES_PER_S * 1e3,
             "bound_by": "bytes"}
 
 

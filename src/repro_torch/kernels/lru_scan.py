@@ -12,6 +12,19 @@ oracle takes an associative scan, which rounds differently).
 operations in the same order, and masks ragged L and R itself (the JAX
 wrapper pads them with a = 1, b = 0).
 
+The kernel has two routes, and :func:`_route` picks one from shape,
+type and alignment alone: "tma" when a, b and the output start on
+16-byte boundaries and a row of R values is a multiple of 16 bytes (R
+% 4 == 0 in float32, R % 8 == 0 in bfloat16; every call of the hybrid
+model), else "simple". The tma route feeds each block's slab of
+channels through a ring of shared-memory tiles loaded by the Tensor
+Memory Accelerator, so the loads run far ahead of the serial chain; the
+simple route is one thread per channel with its loads 16 steps ahead.
+Both walk each channel's time axis in order with the same two rounded
+operations a step, so both equal :func:`lru_scan_torch` bit for bit.
+No keyword or setting chooses a route, and a route that fails raises:
+neither stands in for the other.
+
 :class:`LruScan` is the kernel with a backward, for training on the
 card (the JAX package differentiates its associative scan; this is the
 gradient of the same function). Its backward is the recurrence run
@@ -32,6 +45,7 @@ import torch
 from repro_torch.kernels import build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_ROUTES = {"simple": 0, "tma": 1}
 
 
 def lru_scan_torch(a: torch.Tensor, b: torch.Tensor,
@@ -49,17 +63,52 @@ def lru_scan_torch(a: torch.Tensor, b: torch.Tensor,
     return out
 
 
+def _route(R: int, dtype: torch.dtype, *ptrs: int) -> str:
+    """The kernel's route for rows of ``R`` values of ``dtype`` at the
+    device addresses ``ptrs`` (a, b or g, and the output): "tma" when
+    every address and a row's bytes are multiples of 16 (the Tensor
+    Memory Accelerator's rules), else "simple"."""
+    if (R * dtype.itemsize) % 16 == 0 and all(p % 16 == 0 for p in ptrs):
+        return "tma"
+    return "simple"
+
+
 def _lib() -> ctypes.CDLL:
     lib = build.load("lru_scan")
     fn, rev = lib.lru_scan_launch, lib.lru_scan_reverse_launch
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 \
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 \
             + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        rev.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 \
+        rev.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 \
             + [ctypes.c_void_p]
         rev.restype = ctypes.c_int
     return lib
+
+
+def _launch_forward(a, b, h0, out, route: str) -> None:
+    """One forward launch on ``route``; raises on a CUDA error."""
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream(a.device)
+        err = _lib().lru_scan_launch(
+            a.data_ptr(), b.data_ptr(),
+            None if h0 is None else h0.data_ptr(), out.data_ptr(),
+            _DTYPES[a.dtype], *a.shape, _ROUTES[route], stream.cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"lru_scan kernel launch ({route} route) failed "
+                           f"with CUDA error {err}")
+
+
+def _launch_reverse(a, g, lam, route: str) -> None:
+    """One reverse-mode launch on ``route``; raises on a CUDA error."""
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream(a.device)
+        err = _lib().lru_scan_reverse_launch(
+            a.data_ptr(), g.data_ptr(), lam.data_ptr(), *a.shape,
+            _ROUTES[route], stream.cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"lru_scan reverse kernel launch ({route} route) "
+                           f"failed with CUDA error {err}")
 
 
 def lru_scan_cuda(a: torch.Tensor, b: torch.Tensor,
@@ -91,16 +140,8 @@ def lru_scan_cuda(a: torch.Tensor, b: torch.Tensor,
     out = torch.empty_like(a)
     if B == 0 or L == 0 or R == 0:
         return out
-    lib = _lib()
-    with torch.cuda.device(a.device):
-        stream = torch.cuda.current_stream(a.device)
-        err = lib.lru_scan_launch(
-            a.data_ptr(), b.data_ptr(),
-            None if h0 is None else h0.data_ptr(), out.data_ptr(),
-            _DTYPES[a.dtype], B, L, R, stream.cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"lru_scan kernel launch failed with CUDA error "
-                           f"{err}")
+    _launch_forward(a, b, h0, out, _route(R, a.dtype, a.data_ptr(),
+                                          b.data_ptr(), out.data_ptr()))
     build.LAUNCHES["lru_scan"] += 1
     return out
 
@@ -125,15 +166,8 @@ def lru_scan_reverse_cuda(a: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     lam = torch.empty_like(a)
     if B == 0 or L == 0 or R == 0:
         return lam
-    lib = _lib()
-    with torch.cuda.device(a.device):
-        stream = torch.cuda.current_stream(a.device)
-        err = lib.lru_scan_reverse_launch(a.data_ptr(), g.data_ptr(),
-                                          lam.data_ptr(), B, L, R,
-                                          stream.cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"lru_scan reverse kernel launch failed with "
-                           f"CUDA error {err}")
+    _launch_reverse(a, g, lam, _route(R, a.dtype, a.data_ptr(),
+                                      g.data_ptr(), lam.data_ptr()))
     build.LAUNCHES["lru_scan"] += 1
     return lam
 

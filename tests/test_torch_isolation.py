@@ -1,5 +1,6 @@
 """The port stands alone: ``repro_torch`` and ``chip_smoke.py`` import
-neither JAX nor anything of the JAX package ``repro``, and the port's
+neither JAX nor anything of the JAX package ``repro`` (nor, by their
+sources, do ``kernel_ab.py`` and ``lru_scan_ablation.py``), and the port's
 entry points refuse to fall back to the CPU on their own."""
 import os
 import pkgutil
@@ -48,7 +49,11 @@ _FORBIDDEN = re.compile(
 
 
 def _sources():
-    return sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    """The port's modules and the scripts that build, check and time it
+    on the card."""
+    return sorted(PKG.rglob("*.py")) + [
+        ROOT / name for name in ("chip_smoke.py", "kernel_ab.py",
+                                 "lru_scan_ablation.py")]
 
 
 def test_imports_with_jax_and_repro_blocked():

@@ -19,6 +19,7 @@ import math
 import os
 import subprocess
 import sys
+import threading
 
 import numpy as np
 import pytest
@@ -176,10 +177,19 @@ SSD_SHAPES = [
     (1, 100, 2, 40, 12, True), (1, 1024, 4, 64, 64, True),
     (3, 77, 5, 256, 256, True), (1, 33, 1, 1, 1, False),
 ]
-# (B, L, R, h0): the JAX suite's shapes and ragged ones
+# (B, L, R, h0): the JAX suite's shapes and ragged ones, then the tma
+# route's edges: a ragged L at the training width, an L shorter than one
+# tile, and R 8 (the least a bf16 row may have on that route)
 LRU_SHAPES = [(2, 256, 512, False), (2, 300, 130, True),
               (1, 64, 1024, True), (3, 1024, 64, False), (1, 17, 129, True),
-              (2, 1, 1, False)]
+              (2, 1, 1, False), (1, 4099, 4096, True), (2, 5, 64, False),
+              (2, 40, 8, True)]
+
+
+def lru_expected_route(R, dtype):
+    """The route of freshly allocated (16-byte aligned) tensors: tma when
+    a row of R values is a multiple of 16 bytes."""
+    return "tma" if R * dtype.itemsize % 16 == 0 else "simple"
 
 
 def ssd_args(shape, dtype, device, seed):
@@ -260,8 +270,95 @@ def test_lru_scan_kernel_matches_plain(cuda_device, shape, dtype):
     torch.cuda.synchronize()
     assert tops.LAUNCHES["lru_scan"] == before + 1
     assert out.dtype == dtype and out.shape == a.shape
+    assert tls._route(R, dtype, a.data_ptr(), b.data_ptr(),
+                      out.data_ptr()) == lru_expected_route(R, dtype)
     # the same float32 operations in the same order
     assert torch.equal(out, plain)
+
+
+def unaligned(x):
+    """A contiguous copy of ``x`` one element past the start of a fresh
+    (16-byte aligned) allocation."""
+    y = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)[1:]
+    y = y.view(x.shape).copy_(x)
+    assert y.is_contiguous() and y.data_ptr() % 16 != 0
+    return y
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_lru_scan_unaligned_view_takes_the_simple_route(cuda_device, dtype):
+    """An R that the tma route takes, on tensors that start off a 16-byte
+    boundary: the simple route, forward (and, in f32, reverse), each
+    bit-equal to the plain version."""
+    B, L, R = 2, 130, 64
+    rng = np.random.default_rng(11)
+    a = torch.sigmoid(torch.from_numpy(
+        rng.standard_normal((B, L, R), np.float32))).to(cuda_device, dtype)
+    b = torch.from_numpy(rng.standard_normal((B, L, R), np.float32)) \
+        .to(cuda_device, dtype)
+    ua, ub = unaligned(a), unaligned(b)
+    out = tls.lru_scan_cuda(ua, ub)
+    assert lru_expected_route(R, dtype) == "tma"
+    assert tls._route(R, dtype, ua.data_ptr(), ub.data_ptr(),
+                      out.data_ptr()) == "simple"
+    assert tls._route(R, dtype, a.data_ptr(), b.data_ptr(),
+                      out.data_ptr()) == "tma"
+    assert torch.equal(out, tls.lru_scan_torch(a, b))
+    assert torch.equal(out, tls.lru_scan_cuda(a, b))
+    if dtype == torch.float32:
+        lam = tls.lru_scan_reverse_cuda(ua, ub)
+        assert torch.equal(lam, tls.lru_scan_reverse_cuda(a, b))
+        ins = [x.clone().requires_grad_(True) for x in (a, b)]
+        h = tls.lru_scan_torch(*ins)
+        assert torch.equal(lam, torch.autograd.grad(h, ins[1], b)[0])
+
+
+@pytest.mark.cuda
+def test_lru_scan_tma_route_from_a_fresh_thread(cuda_device):
+    """The tma route encodes its tensor maps with cuTensorMapEncodeTiled,
+    which needs the context current in the calling thread; autograd runs a
+    backward on a thread of its own that may not have it. A fresh thread
+    whose tensors come from the allocator's cache (no cudaMalloc there to
+    make the context current) gets the main thread's bits."""
+    a = torch.sigmoid(torch.randn((2, 256, 512), device=cuda_device))
+    g = torch.randn_like(a)
+    want = (tls.lru_scan_cuda(a, g), tls.lru_scan_reverse_cuda(a, g))
+    torch.empty_like(a), torch.empty_like(a)    # cached blocks to reuse
+    got = {}
+
+    def run():
+        try:
+            got["h"] = tls.lru_scan_cuda(a, g)
+            got["lam"] = tls.lru_scan_reverse_cuda(a, g)
+            torch.cuda.synchronize()
+        except RuntimeError as e:        # re-raised on the test's thread
+            got["error"] = e
+
+    worker = threading.Thread(target=run)
+    worker.start()
+    worker.join(timeout=120)
+    assert not worker.is_alive()
+    if "error" in got:
+        raise got["error"]
+    assert torch.equal(got["h"], want[0])
+    assert torch.equal(got["lam"], want[1])
+
+
+@pytest.mark.cuda
+def test_lru_scan_tma_route_raises_where_it_cannot_map(cuda_device):
+    """Route A refuses what TMA cannot map (an unaligned base, a row that
+    is not a multiple of 16 bytes) with a CUDA error, and the wrapper
+    raises: the simple route never stands in for it."""
+    a = torch.rand((1, 64, 64), device=cuda_device)
+    out = torch.empty_like(a)
+    with pytest.raises(RuntimeError, match="tma route"):
+        tls._launch_forward(unaligned(a), a, None, out, "tma")
+    with pytest.raises(RuntimeError, match="tma route"):
+        tls._launch_reverse(unaligned(a), a, out, "tma")
+    odd = torch.rand((1, 64, 130), device=cuda_device)
+    with pytest.raises(RuntimeError, match="tma route"):
+        tls._launch_forward(odd, odd, None, torch.empty_like(odd), "tma")
 
 
 @pytest.mark.cuda
@@ -596,6 +693,10 @@ def test_lru_scan_backward_matches_autograd(cuda_device, shape):
         out = fn(*ins) if with_h0 else fn(*ins, None)
         grads.append(torch.autograd.grad(out, ins, g) + (out,))
         assert tops.LAUNCHES["lru_scan"] - before == launches
+        if launches:    # the reverse launch read a and g, wrote lam = db
+            assert tls._route(R, torch.float32, ins[0].data_ptr(),
+                              g.data_ptr(), grads[0][1].data_ptr()) \
+                == lru_expected_route(R, torch.float32)
     torch.cuda.synchronize()
     for got, want in zip(*grads):
         assert torch.equal(got, want)

@@ -88,3 +88,21 @@ def test_cpu_path_launches_no_kernel_and_wrapper_refuses_cpu():
     assert tops.LAUNCHES == before
     with pytest.raises(ValueError, match="CUDA"):
         tls.lru_scan_cuda(a, b)
+
+
+@pytest.mark.parametrize("R, dtype, ptrs, route", [
+    (4096, torch.float32, (0, 16, 4096), "tma"),     # the hybrid's lru width
+    (4, torch.float32, (32, 48, 64), "tma"),          # one 16-byte row
+    (130, torch.float32, (0, 0, 0), "simple"),        # R % 4 != 0
+    (4096, torch.float32, (0, 4, 0), "simple"),       # b off a boundary
+    (4096, torch.float32, (0, 0, 8), "simple"),       # the output off one
+    (8, torch.bfloat16, (0, 0, 0), "tma"),
+    (4, torch.bfloat16, (0, 0, 0), "simple"),         # R % 8 != 0 in bf16
+    (4100, torch.bfloat16, (0, 0, 0), "simple"),
+    (4096, torch.bfloat16, (2, 0, 0), "simple"),
+])
+def test_route_rule(R, dtype, ptrs, route):
+    """The kernel's route follows from R, the type and the addresses
+    alone: tma where TMA can map every tensor (16-byte aligned bases,
+    rows a multiple of 16 bytes), simple otherwise."""
+    assert tls._route(R, dtype, *ptrs) == route
