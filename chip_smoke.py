@@ -201,6 +201,16 @@ FLASH_MAIN_SHAPE = (SERVE_BATCH, SERVE_PROMPT, SERVE_PROMPT, 32, 8, 160,
 # the recurrentgemma-9b prefill's local attention: B 4, Sq = Skv 4096,
 # H 16 over 1 KV head, hd 256, causal, window 2048 (the window path)
 FLASH_WINDOW_SHAPE = (SERVE_BATCH, 4096, 4096, 16, 1, 256, True, 2048, 0.0)
+# the prefills of phases serve_moe, serve_vlm and serve_audio: qwen3-moe
+# (G 8), mixtral under its native 4096-token window, internvl2 (256
+# visual + 1792 text positions) and whisper's decoder (MHA, hd 64, 224
+# prompt tokens), each with its phase's name
+FLASH_MODEL_SHAPES = {
+    "qwen3-moe-30b-a3b": (SERVE_BATCH, 2048, 2048, 32, 4, 128, True, 0, 0.0),
+    "mixtral-8x22b": (1, 8192, 8192, 48, 8, 128, True, 4096, 0.0),
+    "internvl2-2b": (SERVE_BATCH, 2048, 2048, 16, 8, 128, True, 0, 0.0),
+    "whisper-large-v3": (SERVE_BATCH, 224, 224, 20, 20, 64, True, 0, 0.0),
+}
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 # bf16, scaled to the output: per row (one query and head), max|delta|
 # over max|plain|. The kernel and the plain version round p to bf16 at
@@ -1561,6 +1571,14 @@ def phase_flash_kernel(torch):
     bound, bound_by = flash_bound_ms(shape, 2)
     del q, k, v, qt, kt, vt
     window = flash_window_timing(torch, fa)
+    model_shapes = {arch: flash_model_shape_case(torch, fa, shape, 200 + i)
+                    for i, (arch, shape) in
+                    enumerate(FLASH_MODEL_SHAPES.items())}
+    max_row_err = max([max_row_err] + [c["max_row_rel_err"]
+                                       for c in model_shapes.values()])
+    max_err["bfloat16"] = max([max_err["bfloat16"]]
+                              + [c["max_abs_err"]
+                                 for c in model_shapes.values()])
     result = {"name": "flash_attention", "route": "cuda",
               "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
               "replaces": "src/repro/kernels/flash_attention.py:123",
@@ -1576,6 +1594,7 @@ def phase_flash_kernel(torch):
           "library_call": "scaled_dot_product_attention(is_causal=True, "
                           "enable_gqa=True)",
           "library_max_abs_err_vs_plain": lib_err, "window_case": window,
+          "model_shapes": model_shapes,
           "tflops_counted": flash_flops(shape) / ms / 1e9, **result})
     result.update({f"window_{k}": window[k] for k in
                    ("ms", "plain_ms", "bound_ms", "library_ms")})
@@ -1609,6 +1628,60 @@ def flash_window_timing(torch, fa):
             "tflops_counted": flash_flops(shape) / ms / 1e9,
             "library_call": "scaled_dot_product_attention(attn_mask=window "
                             "mask, enable_gqa=True)"}
+
+
+def flash_model_shape_case(torch, fa, shape, seed):
+    """The flash kernel at a new family's prefill shape (bf16): held
+    against its plain version, 1024 queries at a time (query i of a
+    chunk ending at c1 sits at position c1 - 1024 + i over the first c1
+    keys; the whole f32 score tensor at mixtral's shape would be 13 GB),
+    elementwise (FLASH_TOL) and per row (FLASH_BF16_ROW_TOL); then
+    timed beside scaled_dot_product_attention with the same mask, and
+    the bound."""
+    B, Sq, Skv, H, KV, hd, causal, window, cap = shape
+    q, k, v = flash_inputs(torch, shape, torch.bfloat16, seed)
+    out = fa.flash_attention_cuda(q, k, v, causal=causal, window=window,
+                                  softcap=cap)
+    tol, err, row_err = FLASH_TOL["bfloat16"], 0.0, 0.0
+    for c0 in range(0, Sq, 1024):
+        c1 = min(c0 + 1024, Sq)
+        ref = fa.flash_attention_torch(q[:, c0:c1], k[:, :c1], v[:, :c1],
+                                       causal=causal, window=window,
+                                       softcap=cap)
+        got = out[:, c0:c1]
+        diff = (got.float() - ref.float()).abs()
+        check(bool((diff <= tol + tol * ref.float().abs()).all()),
+              f"flash_attention differs from the plain version at {shape} "
+              f"bf16 (queries {c0}..{c1}): max abs err {float(diff.max())}")
+        err = max(err, float(diff.max()))
+        row_err = max(row_err, row_rel_err(got, ref))
+        del ref, got, diff
+    check(row_err <= FLASH_BF16_ROW_TOL, f"flash_attention differs from the "
+          f"plain version at {shape} bf16 by {row_err} of a row's max")
+    del out
+    ms = time_ms(torch, lambda: fa.flash_attention_cuda(
+        q, k, v, causal=causal, window=window, softcap=cap))
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    if window:
+        mask = fa._attention_mask(Sq, Skv, causal=True, window=window,
+                                  device="cuda")
+        kw, call = {"attn_mask": mask}, "attn_mask=window mask"
+    else:
+        kw, call = {"is_causal": True}, "is_causal=True"
+    library_ms = time_ms(torch, lambda: torch.nn.functional
+                         .scaled_dot_product_attention(qt, kt, vt,
+                                                       enable_gqa=True, **kw))
+    bound, bound_by = flash_bound_ms(shape, 2)
+    del q, k, v, qt, kt, vt, kw
+    free_cuda(torch)
+    return {"shape": dict(zip(("B", "Sq", "Skv", "H", "KV", "hd", "causal",
+                                "window"), shape[:8]), dtype="bfloat16"),
+            "max_abs_err": err, "max_row_rel_err": row_err, "ms": ms,
+            "bound_ms": bound, "bound_by": bound_by,
+            "library_ms": library_ms,
+            "library_call": f"scaled_dot_product_attention({call}, "
+                            "enable_gqa=True)",
+            "tflops_counted": flash_flops(shape) / ms / 1e9}
 
 
 # ssd_chunk: the JAX suite's shapes (tests/test_kernels.py, TestSsdChunk-
@@ -2062,12 +2135,12 @@ def phase_serve(torch):
     init_s = time.perf_counter() - t0
     prompt = make_batch(cfg, SERVE_BATCH, SERVE_PROMPT, 0, 0,
                         device="cuda")["tokens"]
-    serve.serve(cfg, model, prompt[:, :128], 2)          # warm-up
+    serve.serve(cfg, model, {"tokens": prompt[:, :128]}, 2)   # warm-up
     free_cuda(torch)
     torch.cuda.reset_peak_memory_stats()
     for name in ops.LAUNCHES:
         ops.LAUNCHES[name] = 0
-    res = serve.serve(cfg, model, prompt, SERVE_STEPS)
+    res = serve.serve(cfg, model, {"tokens": prompt}, SERVE_STEPS)
     launches = dict(ops.LAUNCHES)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     check(launches["flash_attention"] == cfg.n_layers,
@@ -2161,7 +2234,7 @@ def phase_serve_f32(torch):
         prompt = make_batch(cfg, SERVE_BATCH, SERVE_PROMPT, 0, 0,
                             device="cuda")["tokens"]
         attention.attend = recording_attend
-        res = serve.serve(cfg, model, prompt, SERVE_STEPS)
+        res = serve.serve(cfg, model, {"tokens": prompt}, SERVE_STEPS)
         kernel_outs, outs[:] = list(outs), []
         got = served_logits(torch, res)
         del res.cache["k"], res.cache["v"]
@@ -2202,7 +2275,7 @@ def phase_serve_card_vs_cpu(torch):
     card_model = models.init(cfg, 0, device="cpu").to("cuda")
     prompt = make_batch(cfg, 2, 64, 0, 0, device="cpu")["tokens"]
     before = ops.LAUNCHES["flash_attention"]
-    res = serve.serve(cfg, card_model, prompt.cuda(), 8)
+    res = serve.serve(cfg, card_model, {"tokens": prompt.cuda()}, 8)
     check(ops.LAUNCHES["flash_attention"] - before == cfg.n_layers,
           "the card's smoke run did not go through the kernel")
     logits, cache = models.prefill(cfg, cpu_model, {"tokens": prompt},
@@ -2335,8 +2408,10 @@ def ssd_chunk_f64(torch, xdt, loga, Bm, Cm):
 
 def plain_kernel_checks(torch):
     """(owner, attribute, label, plain version, when) of each serving
-    kernel: the function a model calls through ``owner.attribute`` and
-    what computes it without the kernel on the same arguments."""
+    kernel: the function a model calls through ``owner.attribute``, what
+    computes it without the kernel on the same arguments, and which
+    calls reach the kernel (attention: a prompt with the kernel hint;
+    whisper's encoder and cross-attention pass none)."""
     from repro_torch.kernels import lru_scan as ls
     from repro_torch.kernels import ops
     from repro_torch.kernels import ssd_chunk as sc
@@ -2353,7 +2428,8 @@ def plain_kernel_checks(torch):
     return [(ops, "ssd_chunk", "ssd_chunk", sc.ssd_chunk_torch, None),
             (ops, "lru_scan", "lru_scan", ls.lru_scan_torch, None),
             (attention, "attend", "flash_attention", plain_attend,
-             lambda q, *a, **kw: q.shape[1] > 1)]
+             lambda q, *a, **kw: q.shape[1] > 1
+             and kw.get("causal") is not None)]
 
 
 class HeldAgainstPlain:
@@ -2491,15 +2567,20 @@ def tail_reference_logits(torch, cfg, model, prompt, fed):
         ops._FORCE_PLAIN = False
 
 
-def plain_served_logits(torch, cfg, model, prompt, fed):
-    """The plain path's serving run on the same weights: prefill, then
-    serve_step fed ``fed`` one token at a time, every kernel replaced
-    by its plain version; the logits at the served positions."""
+def plain_served_logits(torch, cfg, model, batch, fed):
+    """The plain path's serving run on the same weights: ``batch``
+    (``make_batch``'s dict) prefilled with room for ``fed`` (B, n), then
+    serve_step fed it one token at a time, every kernel replaced by its
+    plain version; the logits at the served positions (the prefill's
+    last, then each step's)."""
     from repro_torch import models
     from repro_torch.kernels import ops
+    from repro_torch.launch import serve
     ops._FORCE_PLAIN = True
     try:
-        logits, cache = models.prefill(cfg, model, {"tokens": prompt})
+        logits, cache = models.prefill(
+            cfg, model, batch,
+            pad_to=serve.prompt_positions(cfg, batch) + fed.shape[1])
         out = [logits]
         for i in range(fed.shape[1]):
             step, cache = models.serve_step(cfg, model, cache,
@@ -2532,11 +2613,11 @@ def phase_serve_family(torch, arch):
     init_s = time.perf_counter() - t0
     prompt = make_batch(cfg, SERVE_BATCH, prompt_len, 0, 0,
                         device="cuda")["tokens"]
-    serve.serve(cfg, model, prompt[:, :256], 2)          # warm-up
+    serve.serve(cfg, model, {"tokens": prompt[:, :256]}, 2)   # warm-up
     free_cuda(torch)
     torch.cuda.reset_peak_memory_stats()
     zero_launches()
-    res = serve.serve(cfg, model, prompt, SERVE_STEPS)
+    res = serve.serve(cfg, model, {"tokens": prompt}, SERVE_STEPS)
     launches = dict(ops.LAUNCHES)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     check_launches(launches, want, f"serving {arch}")
@@ -2579,7 +2660,7 @@ def phase_serve_family(torch, arch):
     free_cuda(torch)
     fed = res.tokens[:, :SERVE_STEPS]
     plain_rel, plain_mean = rel_err(torch, got, plain_served_logits(
-        torch, cfg, model, prompt, fed))
+        torch, cfg, model, {"tokens": prompt}, fed))
     free_cuda(torch)
     t0 = time.perf_counter()
     want_logits = tail_reference_logits(torch, cfg, model, prompt, fed)
@@ -2640,7 +2721,7 @@ def phase_serve_family_f32(torch, arch):
                             device="cuda")["tokens"]
         zero_launches()
         with HeldAgainstPlain(torch) as held:
-            res = serve.serve(cfg, model, prompt, SERVE_STEPS)
+            res = serve.serve(cfg, model, {"tokens": prompt}, SERVE_STEPS)
         check_launches(dict(ops.LAUNCHES), per_layer, f"{arch} f32")
         layer_errs = held.report(per_layer)
         got = served_logits(torch, res)
@@ -2679,7 +2760,7 @@ def phase_serve_family_card_vs_cpu(torch, arch, prompt_len=80):
     card_model = models.init(cfg, 0, device="cpu").to("cuda")
     prompt = make_batch(cfg, 2, prompt_len, 0, 0, device="cpu")["tokens"]
     zero_launches()
-    res = serve.serve(cfg, card_model, prompt.cuda(), 8)
+    res = serve.serve(cfg, card_model, {"tokens": prompt.cuda()}, 8)
     check_launches(dict(ops.LAUNCHES), family_launches(cfg),
                    f"the card's {cfg.name} run")
     logits, cache = models.prefill(cfg, cpu_model, {"tokens": prompt})
@@ -2696,6 +2777,257 @@ def phase_serve_family_card_vs_cpu(torch, arch, prompt_len=80):
           "tolerance": CARD_VS_CPU_TOL})
     check(max_rel <= CARD_VS_CPU_TOL, f"card kernel path differs from the "
           f"CPU plain path by {max_rel} (tolerance {CARD_VS_CPU_TOL})")
+
+
+# The moe, vlm and audio families' serving (phases serve_moe, serve_vlm,
+# serve_audio), bf16, random weights from seed 0, make_batch's batch from
+# seed 0: arch -> (layers, None for the full depth; batch; make_batch's
+# seq_len; decode steps). qwen3-moe at full depth, 4 x 2048 prompt
+# tokens; mixtral-8x22b at full width and 2 layers (141e9 parameters do
+# not fit one card; 2 layers are 10.8 GB), 1 x 8192 tokens so that its
+# 4096-token window binds in the kernel and tokens drop at its capacity
+# of 2560 a group; internvl2 4 x (256 visual + 1792 text); whisper 4 x
+# (1500 frames + 224 decoder tokens), 256 positions with the decode
+# steps, inside the decoder's 448-token cap.
+NEW_FAMILY_SERVE = {
+    "qwen3-moe-30b-a3b": (None, SERVE_BATCH, 2048, SERVE_STEPS),
+    "mixtral-8x22b": (2, 1, 8192, 16),
+    "internvl2-2b": (None, SERVE_BATCH, 2048, SERVE_STEPS),
+    "whisper-large-v3": (None, SERVE_BATCH, 1724, SERVE_STEPS),
+}
+NEW_FAMILY_PHASES = {"serve_moe": ("qwen3-moe-30b-a3b", "mixtral-8x22b"),
+                     "serve_vlm": ("internvl2-2b",),
+                     "serve_audio": ("whisper-large-v3",)}
+
+
+class Routes:
+    """While active, every ``moe.top_k`` call's expert indices are kept
+    in call order (a prefill's layers, then each decode step's); with
+    ``replay`` (another run's list) each call returns the replayed
+    indices, with this run's own probabilities at them, in place of its
+    own picks: the same routes on another path."""
+
+    def __init__(self, replay=None):
+        self.replay = replay
+        self.idx = []
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self.orig = moe.top_k
+
+        def top_k(probs, k):
+            if self.replay is None:
+                vals, idx = self.orig(probs, k)
+            else:
+                idx = self.replay[len(self.idx)]
+                vals = probs.gather(-1, idx)
+            self.idx.append(idx.clone())
+            return vals, idx
+
+        moe.top_k = top_k
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe
+        moe.top_k = self.orig
+
+
+def pick_flips(a, b):
+    """The share of (token, k) picks of ``a`` (..., k) that are not among
+    ``b``'s picks for the same token."""
+    k = a.shape[-1]
+    same = (a[..., :, None] == b[..., None, :]).any(-1).sum(-1)
+    return float((k - same).sum()) / a.numel()
+
+
+def dropped_share(torch, idx, n_experts, cap):
+    """The share of a prefill layer's assignments (idx (B, S, k)) ranked
+    at or past ``cap`` in their expert, each batch row a group."""
+    counts = torch.stack([torch.bincount(row.reshape(-1),
+                                         minlength=n_experts)
+                          for row in idx])
+    return float((counts - cap).clamp_min(0).sum()) / idx.numel()
+
+
+def max_abs(t):
+    return float(t.float().abs().max())
+
+
+def phase_serve_new_family(torch, arch):
+    """A serving main path of the moe, vlm or audio family:
+    NEW_FAMILY_SERVE's config and batch through ``launch.serve`` (one
+    flash launch a layer per prefill: the dense stack's, or whisper's
+    decoder self-attention alone; none in decode), its logits held
+    against a plain serving run on the served tokens (SERVE_BF16_TOL);
+    the prefill profiled; one more prefill with each layer's kernel
+    output held against the plain attention per row
+    (FLASH_BF16_ROW_TOL). For a moe an untimed repeat of the served run
+    records each layer's routes (one copy of the (B, S, k) indices a
+    layer and step); the plain run that decides replays them (no route
+    flipped), and the flips against the plain path's own routes and the
+    dropped share are reported. Whisper's encoder alone must launch
+    nothing. The whole (B, S, V) logits are never formed: every
+    reference serves. ``seconds`` splits the phase's
+    wall time."""
+    from repro_torch import models
+    from repro_torch.configs import get_config
+    from repro_torch.data import make_batch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.models import moe
+    layers, batch_n, seq_len, steps = NEW_FAMILY_SERVE[arch]
+    cfg = get_config(arch)
+    if layers is not None:
+        cfg = cfg.replace(n_layers=layers)
+    want = {"flash_attention": cfg.n_layers}
+    is_moe = cfg.family == "moe"
+    seconds, t_last = {}, [time.perf_counter()]
+
+    def lap(name):
+        now = time.perf_counter()
+        seconds[name] = now - t_last[0]
+        t_last[0] = now
+
+    model = models.init(cfg, 0, device="cuda")
+    torch.cuda.synchronize()
+    lap("init")
+    init_s = seconds["init"]
+    batch = make_batch(cfg, batch_n, seq_len, 0, 0, device="cuda")
+    serve.serve(cfg, model, dict(batch, tokens=batch["tokens"][:, :64]),
+                2)                                       # warm-up
+    free_cuda(torch)
+    lap("batch_and_warm_up")
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    res = serve.serve(cfg, model, batch, steps)
+    launches = dict(ops.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check_launches(launches, want, f"serving {arch}")
+    check(tuple(res.tokens.shape) == (batch_n, steps + 1), "bad token shape")
+    served = served_logits(torch, res)
+    check(bool(torch.isfinite(served).all()), f"non-finite {arch} logits")
+    res.cache.clear()
+    free_cuda(torch)
+    lap("served")
+    if is_moe:
+        # the routes, from a repeat that the times do not include; greedy
+        # decoding makes it choose the served run's tokens
+        with Routes() as routes:
+            repeat = serve.serve(cfg, model, batch, steps)
+        repeat.cache.clear()
+        check(torch.equal(repeat.tokens, res.tokens), f"{arch}: a repeat "
+              "of the served run chose other tokens")
+        free_cuda(torch)
+        lap("routes_repeat")
+    encoder = None
+    if cfg.family == "audio":
+        from repro_torch.models import whisper
+        zero_launches()
+        with torch.no_grad():
+            whisper.encode(cfg, model, batch["audio_embeds"])
+        torch.cuda.synchronize()
+        encoder = dict(ops.LAUNCHES)
+        check_launches(encoder, {}, f"{arch}'s encoder")
+        free_cuda(torch)
+    state = {}
+
+    def prefill():
+        state["logits"], state["cache"] = models.prefill(
+            cfg, model, batch,
+            pad_to=serve.prompt_positions(cfg, batch) + 1)
+
+    def decode():
+        tok = state["logits"][:, -1].argmax(-1)[:, None].to(torch.int32)
+        models.serve_step(cfg, model, state["cache"], tok)
+
+    # one decode step: the profiler's own processing of qwen3-moe's
+    # ~6,500 kernels a step takes seconds
+    profiled = {"prefill": device_breakdown(torch, prefill)}
+    zero_launches()
+    profiled["decode_1_step"] = device_breakdown(torch, decode)
+    check_launches(dict(ops.LAUNCHES), {}, f"{arch} decode")
+    state.clear()
+    free_cuda(torch)
+    lap("encoder_and_profile")
+    fed = res.tokens[:, :steps]
+    with HeldAgainstPlain(torch) as held:
+        models.prefill(cfg, model, batch)
+    layer_errs = held.report(want)
+    del held
+    free_cuda(torch)
+    lap("held_prefill")
+    out = {"phase": f"serve_{cfg.family}",
+           "arch": arch, "layers": cfg.n_layers,
+           "depth_cut": layers is not None, "dtype": cfg.dtype,
+           "params": models.count_params(cfg), "batch": batch_n,
+           "seq_len": seq_len, "prompt_positions":
+               serve.prompt_positions(cfg, batch),
+           "decode_steps": steps, "init_s": init_s,
+           "prefill_s": res.prefill_s,
+           "decode_ms_per_token": res.decode_s / steps * 1e3,
+           "peak_mem_gb": peak_gb, "launches": launches,
+           "encoder_launches": encoder,
+           "layer_max_row_rel_err": layer_errs,
+           "layer_row_tolerance": FLASH_BF16_ROW_TOL}
+    refs = {}
+    with Routes() as own:
+        refs["plain"] = plain_served_logits(torch, cfg, model, batch, fed)
+    free_cuda(torch)
+    lap("plain_run")
+    if is_moe:
+        out["routes_repeat_prefill_s"] = repeat.prefill_s
+        out["routes_repeat_decode_ms_per_token"] = \
+            repeat.decode_s / steps * 1e3
+        with Routes(replay=routes.idx) as rep:
+            refs["plain_replayed_routes"] = plain_served_logits(
+                torch, cfg, model, batch, fed)
+        check(len(rep.idx) == len(routes.idx) == len(own.idx)
+              == cfg.n_layers * (steps + 1), "routes not recorded once "
+              "per layer and step")
+        free_cuda(torch)
+        lap("plain_replayed_run")
+        L, cap = cfg.n_layers, moe.capacity(cfg, batch["tokens"].shape[1])
+        pre = list(zip(routes.idx[:L], own.idx[:L]))
+        out["route_flips"] = [pick_flips(a, b) for a, b in pre]
+        out["route_flips_decode"] = [
+            pick_flips(torch.stack(routes.idx[L + li::L]),
+                       torch.stack(own.idx[L + li::L])) for li in range(L)]
+        out["dropped_share"] = [dropped_share(torch, a, cfg.moe.num_experts,
+                                              cap) for a, _ in pre]
+        out["capacity"] = cap
+        del routes, repeat
+    del own
+    # Serving agreement, max|served - plain| over max|plain|, held to
+    # SERVE_BF16_TOL (the flash kernel rounds p at other points than the
+    # plain attention, as in phase serve) against one plain serving run:
+    # - vlm, audio: the plain path's own;
+    # - moe: the plain path with the served run's routes replayed, so
+    #   that no layer can flip a route. On its own routes a router near
+    #   a tie may pick another expert (route_flips): another function
+    #   of the token, no rounding step, so no bound follows from the
+    #   rounding points. That comparison ("plain") and the flips' own
+    #   effect (flips_alone_max_rel) are readings; neither decides.
+    decides = "plain_replayed_routes" if is_moe else "plain"
+    errs = {name: rel_err(torch, served, ref)[0]
+            for name, ref in refs.items()}
+    if is_moe:
+        rep, own_l = refs["plain_replayed_routes"], refs["plain"]
+        out["flips_alone_max_rel"] = max_abs(rep - own_l) / max_abs(own_l)
+    agree = float((served.argmax(-1) == refs["plain"].argmax(-1))
+                  .float().mean())
+    lap("compare")
+    out.update({"vs_plain_max_rel_err": errs, "decided_by": decides,
+                "tolerance": SERVE_BF16_TOL, "argmax_agreement": agree,
+                "profile": profiled, "seconds": seconds})
+    emit(out)
+    check(max(layer_errs.values()) <= FLASH_BF16_ROW_TOL,
+          f"{arch}: a layer's flash output differs from the plain attention")
+    check(errs[decides] <= SERVE_BF16_TOL, f"{arch} logits differ from "
+          f"the {decides} serving run by {errs[decides]} of max|logit| "
+          f"(tolerance {SERVE_BF16_TOL})")
+    del model, served, refs
+    free_cuda(torch)
+    return launches["flash_attention"]
 
 
 # Training: stablelm-12b at its published widths, depth cut to 2 layers
@@ -3262,7 +3594,8 @@ def be0_first_loss_bound(torch, cfg, spec, ctl_mod):
 PHASES = ("build", "kernel", "flash_kernel", "ssd_kernel", "lru_kernel",
           "engine", "sweep_engine", "paper", "gang", "reference", "trace",
           "stream", "sweep", "serve", "serve_f32", "serve_card_vs_cpu",
-          "serve_ssm", "serve_hybrid", "train", "train_ssm",
+          "serve_ssm", "serve_hybrid", "serve_moe", "serve_vlm",
+          "serve_audio", "train", "train_ssm",
           "train_hybrid", "controller")
 # run only when named in --phases
 EXTRA_PHASES = ("sweep_b1",)
@@ -3339,6 +3672,10 @@ def main(argv=None) -> int:
                 launches.setdefault(name, {})[path] = n
             phase_serve_family_f32(torch, arch)
             phase_serve_family_card_vs_cpu(torch, arch)
+        for path, archs in NEW_FAMILY_PHASES.items():
+            if path in phases:
+                launches.setdefault("flash_attention", {})[path] = sum(
+                    phase_serve_new_family(torch, arch) for arch in archs)
         if "train" in phases:
             phase_train(torch)
             phase_train_card_vs_cpu(torch)

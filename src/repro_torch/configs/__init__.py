@@ -1,9 +1,7 @@
 """Configuration (the port's copy of ``repro.configs``).
 
-``get_config``/``get_smoke_config``/``list_archs`` cover the archs the
-port runs so far: the dense, ssm and hybrid families. Every other arch
-id of the JAX package raises ``NotImplementedError`` naming the ROADMAP
-item that brings its family (``base.UNPORTED_FAMILIES``).
+``get_config``/``get_smoke_config``/``list_archs`` cover every arch of
+the JAX package: the dense, moe, ssm, hybrid, audio and vlm families.
 """
 from __future__ import annotations
 
@@ -19,25 +17,20 @@ from repro_torch.configs.base import (  # noqa: F401
     RecurrentConfig,
     SSMConfig,
     VLMConfig,
-    require_ported,
 )
 
-# arch id -> module name, the archs the port runs
+# arch id -> module name
 _ARCH_MODULES: Dict[str, str] = {
     "command-r-35b": "command_r_35b",
+    "internvl2-2b": "internvl2_2b",
     "mamba2-1.3b": "mamba2_1_3b",
     "mistral-large-123b": "mistral_large_123b",
+    "mixtral-8x22b": "mixtral_8x22b",
     "nemotron-4-340b": "nemotron_4_340b",
+    "qwen3-moe-30b-a3b": "qwen3_moe_30b_a3b",
     "recurrentgemma-9b": "recurrentgemma_9b",
     "stablelm-12b": "stablelm_12b",
-}
-
-# arch id -> model family, the JAX package's archs the port does not run
-_UNPORTED_ARCHS: Dict[str, str] = {
-    "qwen3-moe-30b-a3b": "moe",
-    "mixtral-8x22b": "moe",
-    "whisper-large-v3": "audio",
-    "internvl2-2b": "vlm",
+    "whisper-large-v3": "whisper_large_v3",
 }
 
 
@@ -46,8 +39,6 @@ def list_archs() -> List[str]:
 
 
 def _module(arch: str):
-    if arch in _UNPORTED_ARCHS:
-        require_ported(_UNPORTED_ARCHS[arch])
     if arch not in _ARCH_MODULES:
         raise KeyError(f"unknown arch {arch!r}; choose from {list_archs()}")
     return importlib.import_module(

@@ -17,24 +17,6 @@ PAPER_S = 4.0       # Eq. 3 grace-period weight s
 PAPER_P = 1         # per-job preemption cap P (Fig. 5 sweeps it)
 
 
-# Model family -> the ROADMAP item (queue 1 of ROADMAP.md) that ports it;
-# the port runs the families not listed here.
-UNPORTED_FAMILIES = {
-    "moe": "the other model families",
-    "audio": "the other model families",
-    "vlm": "the other model families",
-}
-
-
-def require_ported(family: str) -> None:
-    """Raise ``NotImplementedError`` naming the ROADMAP item of a model
-    family the port does not run yet."""
-    if family in UNPORTED_FAMILIES:
-        raise NotImplementedError(
-            f"model family {family!r} is not ported yet: it comes with "
-            f"{UNPORTED_FAMILIES[family]} (ROADMAP.md, queue 1)")
-
-
 @dataclass(frozen=True)
 class MoEConfig:
     """Mixture-of-experts block config."""

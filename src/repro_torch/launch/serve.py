@@ -4,9 +4,12 @@
         [--smoke] [--batch 2] [--prompt-len 32] [--decode-steps 16] \\
         [--seed 0] [--device cuda]
 
-Runs on the current CUDA device unless ``--device`` names another (pass
-``--device cpu`` to run the plain PyTorch path on the CPU). Counterpart
-of ``repro.launch.serve``.
+Any arch of ``configs.list_archs()``; the prompt is ``make_batch``'s
+whole batch (``--prompt-len`` counts whisper's frames and internvl2's
+visual tokens as the JAX launcher does). Runs on the current CUDA
+device unless ``--device`` names another (pass ``--device cpu`` to run
+the plain PyTorch path on the CPU). Counterpart of
+``repro.launch.serve``.
 """
 from __future__ import annotations
 
@@ -40,15 +43,24 @@ def _greedy(logits: torch.Tensor) -> torch.Tensor:
     return torch.argmax(logits[:, -1], dim=-1)[:, None].to(torch.int32)
 
 
-def serve(cfg, params, prompt: torch.Tensor,
-          decode_steps: int) -> ServeResult:
-    """Prefill ``prompt`` (B, S) with room for ``decode_steps`` more
-    tokens, then decode greedily; wall times end in a synchronize."""
-    dev = prompt.device
+def prompt_positions(cfg, batch: dict) -> int:
+    """The cache positions a prefill of ``batch`` fills: the tokens,
+    after the visual prefix for the vlm family."""
+    n = batch["tokens"].shape[1]
+    return n + cfg.vlm.n_visual_tokens if cfg.family == "vlm" else n
+
+
+def serve(cfg, params, batch: dict, decode_steps: int) -> ServeResult:
+    """Prefill ``batch`` (``make_batch``'s dict: the (B, S) tokens, and
+    the audio or vlm family's embeddings) with room for ``decode_steps``
+    more tokens, then decode greedily; wall times end in a
+    synchronize."""
+    dev = batch["tokens"].device
     _sync(dev)
     t0 = time.perf_counter()
-    logits, cache = models.prefill(cfg, params, {"tokens": prompt},
-                                   pad_to=prompt.shape[1] + decode_steps)
+    logits, cache = models.prefill(
+        cfg, params, batch,
+        pad_to=prompt_positions(cfg, batch) + decode_steps)
     tok = _greedy(logits)
     _sync(dev)
     prefill_s = time.perf_counter() - t0
@@ -81,7 +93,7 @@ def main(argv=None) -> ServeResult:
     params = models.init(cfg, args.seed, device=dev)
     batch = make_batch(cfg, args.batch, args.prompt_len, args.seed, 0,
                        device=dev)
-    res = serve(cfg, params, batch["tokens"], args.decode_steps)
+    res = serve(cfg, params, batch, args.decode_steps)
     print(f"prefill({args.prompt_len} tokens x{args.batch}) "
           f"{res.prefill_s:.2f}s on {dev}")
     print(f"decoded {args.decode_steps} steps in {res.decode_s:.2f}s "

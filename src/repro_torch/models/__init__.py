@@ -1,22 +1,24 @@
 """Model registry: family -> module (counterpart of ``repro.models``).
 
-The port runs and trains (:func:`loss_fn`) the dense, ssm and hybrid
-families so far. Every other family raises
-``NotImplementedError`` naming the ROADMAP item that brings it
-(``configs.base.UNPORTED_FAMILIES``). The functions take the
-model module where the JAX package takes its parameter tree.
+Every family of the JAX package is ported: dense, moe, ssm, hybrid,
+audio (whisper) and vlm. The functions take the model module where the
+JAX package takes its parameter tree; ``forward`` and ``prefill`` pass
+the audio and vlm families the whole batch dict (their frame or patch
+embeddings beside the tokens), the others its tokens.
 """
 from __future__ import annotations
 
 import importlib
 
-from repro_torch.configs.base import ModelConfig, require_ported
+from repro_torch.configs.base import ModelConfig
 
-_FAMILY_MODULES = {"dense": "dense", "ssm": "ssm", "hybrid": "hybrid"}
+_FAMILY_MODULES = {"dense": "dense", "moe": "moe", "ssm": "ssm",
+                   "hybrid": "hybrid", "audio": "whisper", "vlm": "vlm"}
+# families whose forward and prefill take the whole batch dict
+_BATCH_FAMILIES = ("audio", "vlm")
 
 
 def get_module(cfg: ModelConfig):
-    require_ported(cfg.family)
     if cfg.family not in _FAMILY_MODULES:
         raise KeyError(f"unknown model family {cfg.family!r}")
     return importlib.import_module(
@@ -35,20 +37,25 @@ def count_params(cfg: ModelConfig) -> int:
 
 
 def forward(cfg: ModelConfig, params, batch):
-    return get_module(cfg).forward(cfg, params, batch["tokens"])
+    mod = get_module(cfg)
+    if cfg.family in _BATCH_FAMILIES:
+        return mod.forward(cfg, params, batch)
+    return mod.forward(cfg, params, batch["tokens"])
 
 
 def loss_fn(cfg: ModelConfig, params, batch):
-    """Mean next-token CE of ``batch`` (float32, 0-d, differentiable)
-    through the family's training route: attention's plain path, the
-    ssm's plain intra-chunk term, the hybrid's ``lru_scan`` kernel with
-    its backward on the card."""
+    """Mean next-token CE of ``batch`` (float32, 0-d, differentiable;
+    the moe adds its load-balance loss) through the family's training
+    route: attention's plain path, the ssm's plain intra-chunk term,
+    the hybrid's ``lru_scan`` kernel with its backward on the card."""
     return get_module(cfg).loss_fn(cfg, params, batch)
 
 
 def prefill(cfg: ModelConfig, params, batch, pad_to: int = 0):
-    return get_module(cfg).prefill(cfg, params, batch["tokens"],
-                                   pad_to=pad_to)
+    mod = get_module(cfg)
+    if cfg.family in _BATCH_FAMILIES:
+        return mod.prefill(cfg, params, batch, pad_to=pad_to)
+    return mod.prefill(cfg, params, batch["tokens"], pad_to=pad_to)
 
 
 def serve_step(cfg: ModelConfig, params, cache, tokens):

@@ -3,7 +3,9 @@
 :func:`params_from_numpy` takes the JAX package's parameter tree of a
 model (``repro.models.init``'s nested dict, leaves as numpy arrays, the
 per-layer leaves stacked on a leading layer axis: ``layers`` for the
-dense and ssm families, ``rec`` and ``attn`` for the hybrid) and
+dense, moe, ssm and vlm families, ``rec`` and ``attn`` for the hybrid,
+``enc`` and ``dec`` for whisper; vlm's ``projector`` is a dict of
+unstacked leaves) and
 returns the port's module holding the same values, each stacked leaf
 split into its layers. :func:`train_state_from_numpy` does the same
 for a whole train state, the AdamW moments and step included.
@@ -15,11 +17,14 @@ import torch
 
 from repro_torch import device as _device
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import dense, hybrid, ssm
+from repro_torch.models import dense, hybrid, moe, ssm, vlm, whisper
 
 _MODELS = {"dense": (dense.DenseLM, dense.param_defs),
+           "moe": (moe.MoELM, moe.param_defs),
            "ssm": (ssm.MambaLM, ssm.param_defs),
-           "hybrid": (hybrid.HybridLM, hybrid.param_defs)}
+           "hybrid": (hybrid.HybridLM, hybrid.param_defs),
+           "audio": (whisper.WhisperLM, whisper.param_defs),
+           "vlm": (vlm.VisionLM, vlm.param_defs)}
 
 
 def to_tensor(a) -> torch.Tensor:
@@ -50,14 +55,18 @@ def _check_keys(cfg: ModelConfig, tree: dict, defs: dict, what: str):
 
 def _leaf_pairs(model, tree: dict, defs: dict):
     """(parameter, tensor, name) for every leaf of ``tree``, a stacked
-    leaf split into its layers (``model.leaf`` names the parameter);
-    raises on a stack of the wrong depth."""
+    leaf (its definition's first logical axis ``"layers"``) split into
+    its layers (``model.leaf`` names the parameter); raises on a stack
+    of the wrong depth."""
     for name, a in tree.items():
         if not isinstance(a, dict):
             yield model.leaf(name), to_tensor(a), name
             continue
         for lname, la in a.items():
             t = to_tensor(la)
+            if not dense.is_stacked(defs[name][lname]):
+                yield model.leaf(lname, None, name), t, f"{name}.{lname}"
+                continue
             n = defs[name][lname].shape[0]
             if t.dim() == 0 or t.shape[0] != n:
                 raise ValueError(f"{name}.{lname}: expected {n} stacked "
@@ -74,9 +83,7 @@ def params_from_numpy(cfg: ModelConfig, tree: dict, device):
     whose type is not the one its definition gives (the model's type,
     or the leaf's own, as float32 ``lam`` in a bfloat16 hybrid)."""
     if cfg.family not in _MODELS:
-        raise NotImplementedError(
-            f"params_from_numpy converts the dense, ssm and hybrid "
-            f"families; got {cfg.family!r}")
+        raise KeyError(f"unknown model family {cfg.family!r}")
     cls, param_defs = _MODELS[cfg.family]
     model = cls(cfg, device=_device.resolve(device))
     defs = param_defs(cfg)

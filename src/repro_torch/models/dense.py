@@ -173,8 +173,11 @@ class DenseLayer(nn.Module):
 
 class DenseLM(nn.Module):
     """embed (V, D), final_norm (D,), out_head (D, V) unless tied, and
-    ``layers``: one :class:`DenseLayer` per layer. Allocated empty;
-    :func:`init` or ``convert.params_from_numpy`` fills it."""
+    ``layers``: one ``Layer`` (:class:`DenseLayer`; the moe family's
+    subclass swaps it) per layer. Allocated empty; :func:`init` or
+    ``convert.params_from_numpy`` fills it."""
+
+    Layer = DenseLayer
 
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
@@ -182,7 +185,7 @@ class DenseLM(nn.Module):
         dtype = common.torch_dtype(cfg.dtype)
         top = {k: d for k, d in param_defs(cfg).items() if k != "layers"}
         self.top = _Leaves(top, dtype, device, stacked=False)
-        self.layers = nn.ModuleList(DenseLayer(cfg, dtype, device)
+        self.layers = nn.ModuleList(self.Layer(cfg, dtype, device)
                                     for _ in range(cfg.n_layers))
 
     def leaf(self, name: str, layer: Optional[int] = None,
@@ -210,17 +213,21 @@ def init(cfg: ModelConfig, seed: int = 0, *, device=None) -> DenseLM:
 def init_leaves(model: nn.Module, defs: dict, seed: int,
                 device: torch.device) -> nn.Module:
     """Fill ``model`` from ``defs`` with the counter-based draws of
-    ``common.init_``: leaves numbered in the order of ``defs``, a stack
-    (a dict of leaves stacked on a leading layer axis) one layer's
-    slice at a time, each slice at its offset in the stacked leaf.
-    ``model.leaf(name, layer, stack)`` names each parameter; ``device``
-    is where the model lies."""
+    ``common.init_``: leaves numbered in the order of ``defs``. A leaf
+    of a dict whose first logical axis is ``"layers"`` is a stack, drawn
+    one layer's slice at a time, each slice at its offset in the stacked
+    leaf; any other leaf of a dict (vlm's ``projector``) is drawn whole.
+    ``model.leaf(name, layer, group)`` names each parameter (``layer``
+    None for an unstacked leaf of dict ``group``); ``device`` is where
+    the model lies."""
     leaf = 0
     for name, d in defs.items():
         for lname, ld in (d.items() if isinstance(d, dict)
                           else [(None, d)]):
             if lname is None:
                 common.init_(model.leaf(name), ld, seed, leaf)
+            elif not is_stacked(ld):
+                common.init_(model.leaf(lname, None, name), ld, seed, leaf)
             else:
                 n = int(math.prod(ld.shape[1:]))
                 for li in range(ld.shape[0]):
@@ -228,6 +235,11 @@ def init_leaves(model: nn.Module, defs: dict, seed: int,
                                  leaf, start=li * n)
             leaf += 1
     return model
+
+
+def is_stacked(d: ParamDef) -> bool:
+    """Whether a definition is stacked on a leading layer axis."""
+    return bool(d.axes) and d.axes[0] == "layers"
 
 
 # ---------------------------------------------------------------------------
@@ -289,8 +301,15 @@ def hidden(cfg: ModelConfig, model: DenseLM, tokens: torch.Tensor, *,
     """The last layer's output before the final norm, (B, S, D).
     ``train=True`` is the differentiable route: attention's plain path
     (no kernel hints) and each layer under ``cfg.remat``."""
-    S = tokens.shape[1]
-    x = embed(cfg, model, tokens)
+    return hidden_embedded(cfg, model, embed(cfg, model, tokens),
+                           train=train)
+
+
+def hidden_embedded(cfg: ModelConfig, model: DenseLM, x: torch.Tensor, *,
+                    train: bool = False) -> torch.Tensor:
+    """:func:`hidden` from the embedded sequence x (B, S, D) (vlm's
+    visual prefix and text)."""
+    S = x.shape[1]
     positions = torch.arange(S, device=x.device)
     mask = common.causal_mask(S, S, window=cfg.window, device=x.device)
     body = _maybe_remat(cfg, functools.partial(_layer_out, kernel=False)) \
@@ -322,15 +341,22 @@ def prefill(cfg: ModelConfig, model: DenseLM, tokens: torch.Tensor,
 
     ``pad_to`` reserves cache room for subsequent decode steps. Each
     layer's k/v go straight into the cache as they are computed."""
-    B, S = tokens.shape
-    x = embed(cfg, model, tokens)
+    return prefill_embedded(cfg, model, embed(cfg, model, tokens), pad_to)
+
+
+@torch.no_grad()
+def prefill_embedded(cfg: ModelConfig, model: DenseLM, x: torch.Tensor,
+                     pad_to: int = 0) -> Tuple[torch.Tensor, dict]:
+    """:func:`prefill` from the embedded prompt x (B, S, D), for every
+    ``Layer`` whose output starts (x, (k, v))."""
+    B, S = x.shape[:2]
     positions = torch.arange(S, device=x.device)
     mask = common.causal_mask(S, S, window=cfg.window, device=x.device)
     cache = attention.init_cache(cfg.n_layers, B, max(pad_to, S),
                                  cfg.n_kv_heads, cfg.head_dim, x.dtype,
                                  device=x.device)
     for li, layer in enumerate(model.layers):
-        x, (k, v) = layer(x, positions, mask)
+        x, (k, v) = layer(x, positions, mask)[:2]
         cache["k"][li, :, :S] = k
         cache["v"][li, :, :S] = v
     cache["kv_pos"][:S] = torch.arange(S, dtype=torch.int32, device=x.device)

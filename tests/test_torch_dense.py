@@ -257,33 +257,18 @@ def test_stablelm_full_size():
     assert 2 * cfg.n_layers * cfg.n_kv_heads * cfg.head_dim * 2 == 204_800
 
 
-@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "internvl2-2b",
-                                  "mixtral-8x22b", "whisper-large-v3"])
-def test_other_archs_name_their_roadmap_item(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tconfigs.get_config(arch)
-    jcfg = jconfigs.get_config(arch)
-    cfg = tconfigs.ModelConfig(**{f.name: getattr(jcfg, f.name) for f in
-                                  dataclasses.fields(tconfigs.ModelConfig)
-                                  if f.name in ("name", "family", "source",
-                                                "n_layers", "d_model",
-                                                "n_heads", "n_kv_heads",
-                                                "d_ff", "vocab")})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tmodels.init(cfg, device="cpu")
-    if cfg.family in ("audio", "vlm"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            make_batch(cfg, 1, 4, 0, 0, device="cpu")
-
-
 def test_every_jax_arch_is_ported_or_names_its_item():
+    """Every arch of the JAX package is ported: the same archs, each
+    config (full and smoke) and its model family the JAX package's."""
+    assert tconfigs.list_archs() == jconfigs.list_archs()
     for arch in jconfigs.list_archs():
-        if arch in tconfigs.list_archs():
-            assert tconfigs.get_config(arch).family in ("dense", "ssm",
-                                                        "hybrid")
-        else:
-            with pytest.raises(NotImplementedError, match="ROADMAP"):
-                tconfigs.get_smoke_config(arch)
+        for get in ("get_config", "get_smoke_config"):
+            assert dataclasses.asdict(getattr(tconfigs, get)(arch)) \
+                == dataclasses.asdict(getattr(jconfigs, get)(arch))
+        cfg = tconfigs.get_smoke_config(arch)
+        assert tmodels.get_module(cfg).__name__.rsplit(".", 1)[1] \
+            == jmodels.get_module(jconfigs.get_smoke_config(arch)) \
+            .__name__.rsplit(".", 1)[1]
 
 
 def test_init_draws_the_jax_distribution():
@@ -339,8 +324,8 @@ def test_serve_path_on_cpu_launches_no_kernel():
     cfg = port_cfg("stablelm-12b", "float32")
     model = dense.init(cfg, seed=7, device="cpu")
     before = dict(tops.LAUNCHES)
-    res = tserve.serve(cfg, model, torch.from_numpy(
-        tokens_for(cfg.vocab, 2, 16, 7)), 3)
+    res = tserve.serve(cfg, model, {"tokens": torch.from_numpy(
+        tokens_for(cfg.vocab, 2, 16, 7))}, 3)
     assert tops.LAUNCHES == before
     assert res.tokens.dtype == torch.int32
     # greedy: each token is the argmax of the logits before it

@@ -117,6 +117,20 @@ def test_module_walk_covers_the_training_slice():
             "repro_torch.core.controller"} <= names
 
 
+def test_module_walk_covers_every_model_family():
+    """The blocked-import walk reaches the six families' model modules,
+    the converter and the four configs of the moe, audio and vlm
+    families."""
+    names = {m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                                   "repro_torch.")}
+    assert {f"repro_torch.models.{m}" for m in (
+        "dense", "moe", "ssm", "hybrid", "whisper", "vlm", "convert",
+        "common", "attention")} <= names
+    assert {f"repro_torch.configs.{m}" for m in (
+        "qwen3_moe_30b_a3b", "mixtral_8x22b", "whisper_large_v3",
+        "internvl2_2b")} <= names
+
+
 def test_source_scan_finds_no_jax_or_repro_import():
     offenders = [f"{p.relative_to(ROOT)}: {m.group(0).strip()}"
                  for p in _sources()

@@ -87,6 +87,40 @@ def test_flash_kernel_matches_plain(cuda_device, shape, dtype):
                                atol=TOL[dtype], rtol=TOL[dtype])
 
 
+# the serving prefills of the moe, vlm and audio families: qwen3-moe
+# (G 8), internvl2, whisper's decoder (MHA, hd 64, 224 prompt tokens)
+# and mixtral under its native 4096-token window
+FLASH_MODEL_SHAPES = [
+    (4, 2048, 2048, 32, 4, 128, True, 0, 0.0),
+    (4, 2048, 2048, 16, 8, 128, True, 0, 0.0),
+    (4, 224, 224, 20, 20, 64, True, 0, 0.0),
+    (1, 8192, 8192, 48, 8, 128, True, 4096, 0.0),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", FLASH_MODEL_SHAPES)
+def test_flash_kernel_matches_plain_at_model_shapes(cuda_device, shape):
+    """bf16 at 2e-2, the plain version taken 1024 queries at a time
+    (query i of a chunk ending at c1 sits at position c1 - 1024 + i over
+    the first c1 keys), so its f32 scores stay near 1.6 GB."""
+    causal, window, cap = shape[6:]
+    q, k, v = qkv(shape, torch.bfloat16, cuda_device, sum(shape[:6]))
+    before = tops.LAUNCHES["flash_attention"]
+    out = tfa.flash_attention_cuda(q, k, v, causal=causal, window=window,
+                                   softcap=cap)
+    assert tops.LAUNCHES["flash_attention"] == before + 1
+    tol = TOL[torch.bfloat16]
+    for c0 in range(0, shape[1], 1024):
+        c1 = min(c0 + 1024, shape[1])
+        plain = tfa.flash_attention_torch(q[:, c0:c1], k[:, :c1], v[:, :c1],
+                                          causal=causal, window=window,
+                                          softcap=cap).float()
+        got = out[:, c0:c1].float()
+        assert bool(((got - plain).abs() <= tol + tol * plain.abs()).all()), \
+            (c0, float((got - plain).abs().max()))
+
+
 @pytest.mark.cuda
 def test_flash_dispatch_on_card_is_the_kernel(cuda_device):
     q, k, v = qkv((1, 128, 128, 4, 2, 32), torch.float32, cuda_device, 1)
@@ -704,10 +738,13 @@ def test_lru_scan_backward_matches_autograd(cuda_device, shape):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("arch", ["stablelm-12b", "mamba2-1.3b",
-                                  "recurrentgemma-9b"])
+                                  "recurrentgemma-9b", "qwen3-moe-30b-a3b",
+                                  "mixtral-8x22b", "whisper-large-v3",
+                                  "internvl2-2b"])
 def test_init_and_batches_on_card_equal_cpu(cuda_device, arch):
     """``models.init`` and ``make_batch`` give the card the CPU's values
-    bit for bit (counter-based draws; tokens drawn on the CPU)."""
+    bit for bit (counter-based draws; tokens and the audio and vlm
+    families' embeddings drawn on the CPU)."""
     from repro_torch import models
     from repro_torch.configs import get_smoke_config
     from repro_torch.data import make_batch
@@ -719,9 +756,12 @@ def test_init_and_batches_on_card_equal_cpu(cuda_device, arch):
         assert card[name].device.type == "cuda"
         assert torch.equal(card[name].cpu(), cpu[name]), name
     for step in (0, 7):
-        tok = make_batch(cfg, 4, 64, 1, step, device=cuda_device)["tokens"]
-        assert torch.equal(tok.cpu(), make_batch(cfg, 4, 64, 1, step,
-                                                 device="cpu")["tokens"])
+        card = make_batch(cfg, 4, 64, 1, step, device=cuda_device)
+        cpu = make_batch(cfg, 4, 64, 1, step, device="cpu")
+        assert sorted(card) == sorted(cpu)
+        for name in cpu:
+            assert card[name].device.type == "cuda"
+            assert torch.equal(card[name].cpu(), cpu[name]), name
 
 
 @pytest.mark.cuda
@@ -789,3 +829,79 @@ def test_dense_train_step_repeats_on_card_and_matches_cpu(cuda_device):
     for k in p1:
         err = float((p1[k] - p_cpu[k]).norm() / p_cpu[k].norm())
         assert err <= 1e-4, (k, err)
+
+
+def _serve_card_and_cpu(arch, prompt_len=40, steps=4):
+    """The f32 smoke config of ``arch`` served on the card (kernel path)
+    and the same weights and batch on the CPU (plain path), the card's
+    greedy tokens fed to the CPU: (cfg, card launches, card logits,
+    CPU logits)."""
+    from repro_torch import models
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data import make_batch
+    from repro_torch.launch import serve
+    cfg = get_smoke_config(arch).replace(dtype="float32")
+    cpu_model = models.init(cfg, 0, device="cpu")
+    card_model = models.init(cfg, 0, device="cpu").to("cuda")
+    batch = make_batch(cfg, 2, prompt_len, 0, 0, device="cpu")
+    before = dict(tops.LAUNCHES)
+    res = serve.serve(cfg, card_model, {k: v.cuda() for k, v in
+                                        batch.items()}, steps)
+    launches = {k: n - before[k] for k, n in tops.LAUNCHES.items()}
+    logits, cache = models.prefill(cfg, cpu_model, batch,
+                                   pad_to=serve.prompt_positions(cfg, batch)
+                                   + steps)
+    want = [logits]
+    for i in range(steps):
+        lg, cache = models.serve_step(cfg, cpu_model, cache,
+                                      res.tokens[:, i:i + 1].cpu())
+        want.append(lg)
+    got = torch.cat([res.prefill_logits, *res.step_logits], dim=1).cpu()
+    return cfg, launches, got, torch.cat(want, dim=1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "mixtral-8x22b",
+                                  "whisper-large-v3", "internvl2-2b"])
+def test_family_serving_on_card_matches_cpu(cuda_device, arch):
+    """The f32 smoke config served on the card (one flash launch a layer
+    in the prefill: the dense stack's, or whisper's decoder self-
+    attention alone) against the CPU's plain path, TF32 off: the logits
+    within 1e-4 of max|logit| (only the order of sums differs; a moe
+    route would flip only at a near-tie in float32)."""
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        cfg, launches, got, want = _serve_card_and_cpu(arch)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    assert launches["flash_attention"] == cfg.n_layers
+    assert sum(launches.values()) == cfg.n_layers
+    assert got.shape == want.shape
+    err = float((got - want).abs().max() / want.abs().max())
+    assert err <= 1e-4, err
+
+
+@pytest.mark.cuda
+def test_whisper_encoder_and_cross_attention_launch_no_kernel(cuda_device):
+    """On the card, whisper's encoder (bidirectional over 24 frames, no
+    multiple of 128: the kernel's wrapper would raise) and its
+    cross-attention take the plain path by route: the encoder launches
+    nothing and the prefill launches one kernel a decoder layer."""
+    from repro_torch import models
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data import make_batch
+    from repro_torch.models import whisper
+    cfg = get_smoke_config("whisper-large-v3")
+    model = models.init(cfg, 0, device=cuda_device)
+    batch = make_batch(cfg, 2, 40, 0, 0, device=cuda_device)
+    before = tops.LAUNCHES["flash_attention"]
+    with torch.no_grad():
+        enc = whisper.encode(cfg, model, batch["audio_embeds"])
+    torch.cuda.synchronize()
+    assert tops.LAUNCHES["flash_attention"] == before
+    assert bool(torch.isfinite(enc).all())
+    logits, _ = models.prefill(cfg, model, batch)
+    torch.cuda.synchronize()
+    assert tops.LAUNCHES["flash_attention"] == before + cfg.n_layers
+    assert bool(torch.isfinite(logits).all())
