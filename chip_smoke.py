@@ -51,13 +51,20 @@ two main paths through the entry points a user calls:
   lru_scan kernel and its reverse-mode backward, an exact launch count
   a step), 3 steps each; then each smoke config's steps on the card
   against the CPU's;
+* moe, vlm and audio training at their published widths, 3 steps each
+  on attention's plain path (no kernel): qwen3-moe-30b-a3b at 2 of its
+  48 layers (4 x 2048 tokens) and mixtral-8x22b at 1 of its 56 (1 x
+  8192, bf16 AdamW moments), each remat recompute's routes held
+  against its forward's; internvl2-2b (4 x (256 visual + 1792 text))
+  and whisper-large-v3 (4 x (1500 frames + 224 tokens)) at full depth;
 * the live controller (``repro_torch.core.controller``): real train
-  jobs of the dense smoke config preempted by FitGpp, flushed and
-  resumed, their losses bit-equal to an uninterrupted run, be0's first
-  loss on the card held against the CPU's to a derived bound, the JAX
-  suite's two mamba2 smoke cases (TE latency, the short-grace-period
-  victim), and every event log equal to the same specs' run on the
-  CPU.
+  jobs of the dense smoke config, and the JAX suite's preempt/resume
+  case on internvl2-2b's smoke config, preempted by FitGpp, flushed
+  and resumed, their losses bit-equal to an uninterrupted run, be0's
+  first loss on the card held against the CPU's to a derived bound,
+  the JAX suite's two mamba2 smoke cases (TE latency, the
+  short-grace-period victim), and every event log equal to the same
+  specs' run on the CPU.
 
 Phase sweep_engine also runs a small table as 2 shards in 2 processes
 on the card (``repro_torch.sharding.trials``) against one process; the
@@ -77,6 +84,7 @@ one trial beside the single-trial engine. Imports no JAX and nothing
 of the JAX package.
 """
 import argparse
+import contextlib
 import dataclasses
 import gc
 import json
@@ -265,13 +273,17 @@ class EngineRuns:
 
 
 # the script's start on the host clock; each phase line carries the
-# seconds since then (``elapsed_s``), so a run shows what each phase cost
+# seconds since then (``elapsed_s``) and since the line before it
+# (``phase_s``), so a run shows what each phase cost
 _START = time.perf_counter()
+_LAST = [_START]
 
 
 def emit(obj) -> None:
     if "phase" in obj:
-        obj = {**obj, "elapsed_s": time.perf_counter() - _START}
+        now = time.perf_counter()
+        obj = {**obj, "elapsed_s": now - _START, "phase_s": now - _LAST[0]}
+        _LAST[0] = now
     print(json.dumps(obj), flush=True)
 
 
@@ -3139,7 +3151,7 @@ def phase_train(torch):
     del state, res, replay, final
     free_cuda(torch)
     n_params = models.count_params(cfg)
-    counted = n_params - cfg.vocab * cfg.d_model      # all but the embedding
+    counted = active_matmul_params(cfg)
     tokens = TRAIN_BATCH * TRAIN_SEQ
     # the first step pays for the allocator's and cuBLAS's warm-up
     s_per_step = statistics.mean(step_s[1:])
@@ -3148,7 +3160,7 @@ def phase_train(torch):
           "remat": cfg.remat, "batch": TRAIN_BATCH, "seq_len": TRAIN_SEQ,
           "steps": TRAIN_STEPS, "lr": TRAIN_LR,
           "warmup_steps": ocfg.warmup_steps, "params": n_params,
-          "init_s": init_s, "losses": losses, "replayed_losses": replayed,
+          "active_params": counted, "init_s": init_s, "losses": losses, "replayed_losses": replayed,
           "step_s": step_s, "s_per_step": s_per_step,
           "tokens_per_s": tokens / s_per_step,
           "step_tflops": 6 * counted * tokens / s_per_step / 1e12,
@@ -3209,26 +3221,56 @@ def phase_train_card_vs_cpu(torch):
           f"from the CPU's by {max_rel} (tolerance {TRAIN_CARD_VS_CPU_TOL})")
 
 
-# ssm and hybrid training (phases train_ssm, train_hybrid): (layers,
-# batch, seq_len) at the published widths, bf16, f32 AdamW moments,
-# remat "full", TRAIN_FAMILY_STEPS steps at phase train's lr, no
-# checkpoint (phase train covers its host I/O). mamba2-1.3b at full
-# depth (48 layers, 1,343,532,032 parameters); recurrentgemma-9b at 3
-# layers, one (rec, rec, attn) group (1,642,156,032 parameters), 1 x
-# 4096 tokens so the 2048-token local window is exercised: at 2 x 4096
-# the 256,000-token vocabulary's f32 logits, their softcap and their
-# gradient (8.4 GB each) ran the card out of memory (63 GB allocated
-# and 10 GB reserved when an 8.4 GB block was asked for, H100 80 GB)
-TRAIN_FAMILIES = {SSM_ARCH: (None, 4, 2048), HYBRID_ARCH: (3, 1, 4096)}
+# training of the families past the dense one at their published widths
+# (phases train_ssm, train_hybrid, train_moe, train_vlm, train_audio):
+# (phase, arch, layers (None: all), batch, seq_len, AdamW moment type,
+# lr), bf16, remat "full", TRAIN_FAMILY_STEPS steps through
+# launch.train.train, no checkpoint (phase train covers its host I/O);
+# seq_len counts the vlm's 256 visual and whisper's 1,500 frame
+# positions, as make_batch does (1,792 text and 224 decoder tokens).
+# mamba2-1.3b at full depth (48 layers, 1,343,532,032 parameters);
+# recurrentgemma-9b at 3 layers, one (rec, rec, attn) group
+# (1,642,156,032 parameters), 1 x 4096 tokens so the 2048-token local
+# window is exercised: at 2 x 4096 the 256,000-token vocabulary's f32
+# logits, their softcap and their gradient (8.4 GB each) ran the card
+# out of memory (63 GB allocated and 10 GB reserved when an 8.4 GB block
+# was asked for, H100 80 GB). qwen3-moe-30b-a3b (30.5e9 parameters) at 2
+# of its 48 layers (1.87e9 parameters with the embedding and output
+# head): about 22 B a parameter with f32 moments while AdamW holds the
+# old and new state side by side, plus the 151,936-token vocabulary's
+# f32 logits and their gradient; at 3 layers (2.49e9) the first backward
+# ran the H100 out of memory: 56.0 GB allocated and 17.8 GB reserved but
+# unallocated when it asked for 4.63 GiB, an f32 logits-sized buffer
+# (20.9 GB before the init handed its temporaries back).
+# mixtral-8x22b at 1 of its 56 layers (2.9e9 parameters, one expert leaf
+# 8 x 6144 x 16384), bf16 moments, 1 x 8192 tokens so its 4,096 window
+# binds, at lr 1e-5: AdamW's first step moves every weight by the
+# learning rate in its gradient's sign, which can move a product's
+# output by lr x its fan-in F, against the output's own size sqrt(F) x
+# the init scale, whose fan-in counts the stacked axes too; for w_down
+# (layers, experts, F, D) the ratio is lr x F x sqrt(layers x experts):
+# 0.59 for stablelm's 2 layers at phase train's 3e-5 (its loss rose
+# once, then fell), 0.37 for qwen3-moe at 2 layers, 1.39 for mixtral at
+# 3e-5, whose eval loss rose on the H100 (10.919 -> 11.956; losses
+# 10.93, 15.71, 11.90), and 0.46 at 1e-5. internvl2-2b and
+# whisper-large-v3 at full depth (24; 32 + 32 layers).
+TRAIN_FAMILIES = (
+    ("train_ssm", SSM_ARCH, None, 4, 2048, "float32", TRAIN_LR),
+    ("train_hybrid", HYBRID_ARCH, 3, 1, 4096, "float32", TRAIN_LR),
+    ("train_moe", "qwen3-moe-30b-a3b", 2, 4, 2048, "float32", TRAIN_LR),
+    ("train_moe", "mixtral-8x22b", 1, 1, 8192, "bfloat16", 1e-5),
+    ("train_vlm", "internvl2-2b", None, 4, 2048, "float32", TRAIN_LR),
+    ("train_audio", "whisper-large-v3", None, 4, 1724, "float32", TRAIN_LR),
+)
 TRAIN_FAMILY_STEPS = 3
 
 
 def train_launches(cfg, evals):
     """{kernel: launches} of TRAIN_FAMILY_STEPS train steps and
     ``evals`` no-grad evaluations of ``cfg`` on the training route.
-    The ssm launches none (its intra-chunk term takes the plain
-    version; attention, where any, its plain path). A hybrid step runs
-    each recurrent layer's ``LruScan`` forward once, again when its
+    Only the hybrid launches any (the ssm's intra-chunk term takes the
+    plain version; attention, where any, its plain path). A hybrid step
+    runs each recurrent layer's ``LruScan`` forward once, again when its
     (rec, rec, attn) group is recomputed under remat "full" (not for
     the remainder layers, which JAX does not remat either), and its
     reverse launch once; an evaluation launches the forward once."""
@@ -3241,26 +3283,66 @@ def train_launches(cfg, evals):
     return {"lru_scan": per_step * TRAIN_FAMILY_STEPS + n_rec * evals}
 
 
-def phase_train_family(torch, arch):
-    """Training for the ssm or hybrid family at its published widths
-    through ``launch.train.train``: finite losses, a lower eval loss
+def active_matmul_params(cfg):
+    """The parameters a token's matrix products use, by the JAX
+    package's roofline rule (``_matmul_params``, copied): all but the
+    embedding (a gather), less the experts a token is not routed to,
+    plus the embedding again where it is tied (the unembedding's
+    product). Counted TFLOP/s are 6 x this x tokens a step."""
+    from repro_torch import models
+    active = models.count_params(cfg) - cfg.vocab * cfg.d_model
+    if cfg.family == "moe":
+        m = cfg.moe
+        per_ffn = cfg.d_model * m.d_expert * (3 if cfg.gated_mlp else 2)
+        active -= cfg.n_layers * per_ffn * (m.num_experts - m.top_k)
+    if cfg.tie_embeddings:
+        active += cfg.vocab * cfg.d_model
+    return active
+
+
+def moe_train_routes(torch, cfg, routes, seq):
+    """From ``routes`` (a ``Routes`` over the train steps): each layer's
+    ``dropped_share`` in the first step's forward, and whether every
+    step's remat recompute (a step's second n_layers ``top_k`` calls, the
+    last layer's first) picked the forward's experts for every token."""
+    from repro_torch.models import moe
+    L = cfg.n_layers
+    check(len(routes.idx) == 2 * L * TRAIN_FAMILY_STEPS,
+          f"{cfg.name}: {len(routes.idx)} top_k calls in "
+          f"{TRAIN_FAMILY_STEPS} steps of {L} layers under remat")
+    cap = moe.capacity(cfg, seq)
+    dropped = [dropped_share(torch, routes.idx[li], cfg.moe.num_experts, cap)
+               for li in range(L)]
+    same = all(torch.equal(routes.idx[s * 2 * L + li],
+                           routes.idx[s * 2 * L + 2 * L - 1 - li])
+               for s in range(TRAIN_FAMILY_STEPS) for li in range(L))
+    return dropped, same
+
+
+def phase_train_family(torch, path, arch, layers, batch, seq, moments, lr):
+    """Training for a family past the dense one at its published widths
+    through ``launch.train.train`` (an AdamW config with ``moments``,
+    the launcher's schedule at ``lr``): finite losses, a lower eval loss
     after TRAIN_FAMILY_STEPS steps, exactly :func:`train_launches` model
-    kernel launches (ssd_chunk and flash_attention none), peak device
+    kernel launches (none but the hybrid's ``lru_scan``), peak device
     memory under the card's 80 GB; s/step, tokens/s and TFLOP/s counted
-    as phase train counts them. Returns the phase's launches."""
+    by :func:`active_matmul_params`. The moe also reports each layer's
+    ``dropped_share`` in the first step and fails unless each step's
+    remat recompute picked the forward's routes. Returns the phase's
+    launches."""
     from repro_torch import models, trainer
     from repro_torch.configs import get_config
     from repro_torch.data import make_eval_batch
     from repro_torch.kernels import ops
     from repro_torch.launch import train as launch_train
-    layers, batch, seq = TRAIN_FAMILIES[arch]
     cfg = get_config(arch)
     if layers:
         cfg = cfg.replace(n_layers=layers)
-    path = "train_ssm" if cfg.family == "ssm" else "train_hybrid"
     check(cfg.dtype == "bfloat16" and cfg.remat == "full",
           f"unexpected training config {cfg.dtype}, remat {cfg.remat}")
-    ocfg = launch_train.opt_config(TRAIN_FAMILY_STEPS, TRAIN_LR)
+    ocfg = dataclasses.replace(launch_train.opt_config(TRAIN_FAMILY_STEPS,
+                                                       lr),
+                               moment_dtype=moments)
     free_cuda(torch)
     torch.cuda.reset_peak_memory_stats()
     zero_launches()
@@ -3273,9 +3355,11 @@ def phase_train_family(torch, arch):
         eval_before = float(models.loss_fn(cfg, state["params"], ev))
     eval_launches = dict(ops.LAUNCHES)
     zero_launches()
-    res = launch_train.train(cfg, state=state, steps=TRAIN_FAMILY_STEPS,
-                             batch=batch, seq_len=seq, lr=TRAIN_LR, seed=0,
-                             device="cuda", log=None)
+    routes = Routes()
+    with routes if cfg.family == "moe" else contextlib.nullcontext():
+        res = launch_train.train(cfg, state=state, steps=TRAIN_FAMILY_STEPS,
+                                 batch=batch, seq_len=seq, lr=lr, seed=0,
+                                 device="cuda", log=None, opt_cfg=ocfg)
     step_launches = dict(ops.LAUNCHES)
     zero_launches()
     with torch.no_grad():
@@ -3284,17 +3368,23 @@ def phase_train_family(torch, arch):
     launches = {k: eval_launches[k] + step_launches[k] + ops.LAUNCHES[k]
                 for k in ops.LAUNCHES}
     losses, step_s = res.losses, res.step_s
-    del state, res, ev
+    out = {}
+    if cfg.family == "moe":
+        out["dropped_share"], out["remat_routes_equal"] = moe_train_routes(
+            torch, cfg, routes, seq)
+    del state, res, ev, routes
     free_cuda(torch)
     n_params = models.count_params(cfg)
-    counted = n_params - cfg.vocab * cfg.d_model      # all but the embedding
+    counted = active_matmul_params(cfg)
     tokens = batch * seq
+    # the first step pays for the allocator's and cuBLAS's warm-up
     s_per_step = statistics.mean(step_s[1:])
     want = train_launches(cfg, evals=2)
     emit({"phase": path, "arch": arch, "layers": cfg.n_layers,
-          "dtype": cfg.dtype, "moments": ocfg.moment_dtype,
-          "remat": cfg.remat, "batch": batch, "seq_len": seq,
-          "steps": TRAIN_FAMILY_STEPS, "lr": TRAIN_LR, "params": n_params,
+          "layers_published": get_config(arch).n_layers,
+          "dtype": cfg.dtype, "moments": moments, "remat": cfg.remat,
+          "batch": batch, "seq_len": seq, "steps": TRAIN_FAMILY_STEPS,
+          "lr": lr, "params": n_params, "active_params": counted,
           "init_s": init_s, "losses": losses, "step_s": step_s,
           "s_per_step": s_per_step, "tokens_per_s": tokens / s_per_step,
           "step_tflops": 6 * counted * tokens / s_per_step / 1e12,
@@ -3302,13 +3392,17 @@ def phase_train_family(torch, arch):
           "eval_loss_before": eval_before, "eval_loss_after": eval_after,
           "peak_device_gb": peak_gb, "launches": launches,
           "launches_train_steps": step_launches,
-          "launches_expected": want})
+          "launches_expected": want, **out})
+    where = f"{path} {arch}"
     check(all(math.isfinite(x) for x in losses),
-          f"{path}: non-finite training loss in {losses}")
-    check(eval_after < eval_before, f"{path}: the eval loss did not drop: "
+          f"{where}: non-finite training loss in {losses}")
+    check(eval_after < eval_before, f"{where}: the eval loss did not drop: "
           f"{eval_before} -> {eval_after}")
-    check(peak_gb < 80.0, f"{path}: peak device memory {peak_gb} GB")
-    check_launches(launches, want, path)
+    check(peak_gb < 80.0, f"{where}: peak device memory {peak_gb} GB")
+    check_launches(launches, want, where)
+    if cfg.family == "moe":
+        check(out["remat_routes_equal"], f"{where}: a remat recompute "
+              "picked other experts than its forward")
     return launches
 
 
@@ -3359,19 +3453,22 @@ def phase_train_family_card_vs_cpu(torch, arch):
           f"{TRAIN_CARD_VS_CPU_TOL})")
 
 
-# the live controller: the JAX package's preempt/resume case with the
-# dense smoke config (bf16) in place of its vlm one, and its two cases
-# that train the mamba2 smoke config (TE latency under fitgpp and fifo;
-# the short-grace-period victim)
+# the live controller: the JAX package's preempt/resume case on its own
+# config, internvl2-2b's smoke (bf16; its batches carry patch
+# embeddings), and on the dense smoke config; its two cases that train
+# the mamba2 smoke config (TE latency under fitgpp and fifo; the
+# short-grace-period victim)
 CONTROLLER_ARCH = TRAIN_ARCH
 CONTROLLER_SSM_ARCH = SSM_ARCH
+CONTROLLER_VLM_ARCH = "internvl2-2b"
 CONTROLLER_NODE = (32.0, 256.0, 8.0)
 
 
 def controller_case(np, ctl_mod, cfg, case, policy, device, workdir):
-    """One controller run: ``be_te`` (one node; BE be0 for 16 steps,
-    demand (8, 32, 8); TE te0 for 2 steps, demand (4, 16, 8), at tick 2;
-    grace periods estimated from the live state), ``te_latency`` (one
+    """One controller run: ``be_te`` or ``be_te_vlm`` (one node; BE be0
+    for 16 steps, demand (8, 32, 8); TE te0 for 2 steps, demand (4, 16,
+    8), at tick 2; grace periods estimated from the live state; the
+    JAX suite's preempt/resume case), ``te_latency`` (one
     node; be0 for 30 steps, te0 (4, 16, 4) for 2 at tick 1), ``victim``
     (2 nodes, s = 4; BE jobs of 40 steps with grace periods of 5 and 1
     ticks, a TE at tick 1; one step a tick) or ``fleet`` (like
@@ -3380,7 +3477,7 @@ def controller_case(np, ctl_mod, cfg, case, policy, device, workdir):
     estimated grace period, at tick 6). Returns the controller."""
     np = __import__("numpy")
     spec = ctl_mod.JobSpec
-    if case == "be_te":
+    if case in ("be_te", "be_te_vlm"):
         ctl = ctl_mod.Controller(n_nodes=1, node_cap=CONTROLLER_NODE,
                                  policy=policy, steps_per_tick=2,
                                  workdir=workdir, device=device)
@@ -3426,43 +3523,47 @@ def phase_controller(torch, np):
     """The live controller on the card: real train jobs preempted and
     resumed through checkpoints; be0's losses across its preemption
     against its uninterrupted run, its first loss against the CPU's
-    (:func:`be0_first_loss_bound`), the TE's slowdown under fitgpp and
-    fifo, the fleet's victim, the JAX suite's two mamba2 smoke cases,
-    and every event log against the same specs' run on the CPU."""
+    (:func:`be0_first_loss_bound`), each for the dense and the vlm smoke
+    config; the TE's slowdown under fitgpp and fifo, the fleet's victim,
+    the JAX suite's two mamba2 smoke cases, and every event log against
+    the same specs' run on the CPU."""
     import shutil
-    from repro_torch import trainer
     from repro_torch.configs import get_smoke_config
     from repro_torch.core import controller as ctl_mod
-    from repro_torch.data import make_batch
     from repro_torch.kernels import ops
     cfg = get_smoke_config(CONTROLLER_ARCH)
     ssm_cfg = get_smoke_config(CONTROLLER_SSM_ARCH)
+    vlm_cfg = get_smoke_config(CONTROLLER_VLM_ARCH)
+    case_cfg = {"te_latency": ssm_cfg, "victim": ssm_cfg,
+                "be_te_vlm": vlm_cfg}
     runs = (("be_te", "fitgpp"), ("be_te", "fifo"), ("fleet", "fitgpp"),
             ("te_latency", "fitgpp"), ("te_latency", "fifo"),
-            ("victim", "fitgpp"))
+            ("victim", "fitgpp"), ("be_te_vlm", "fitgpp"))
     tmp = tempfile.mkdtemp(prefix="chip_smoke_ctl_")
     zero_launches()
     out = {}
+    threads = torch.get_num_threads()
     try:
         for dev in ("cuda", "cpu"):
+            # a smoke step is hundreds of tiny operations: on the CPU one
+            # thread runs them without waiting on a pool at each (the CPU
+            # tests do the same); the event logs do not depend on it
+            torch.set_num_threads(1 if dev == "cpu" else threads)
             for case, policy in runs:
                 out[dev, case, policy] = controller_case(
-                    np, ctl_mod, ssm_cfg if case in ("te_latency", "victim")
-                    else cfg, case, policy, dev,
+                    np, ctl_mod, case_cfg.get(case, cfg), case, policy, dev,
                     os.path.join(tmp, f"{dev}-{case}-{policy}"))
+        torch.set_num_threads(threads)
         launches = dict(ops.LAUNCHES)
-        ctl = out["cuda", "be_te", "fitgpp"]
-        be = ctl.jobs[0]
-        st = trainer.init_train_state(cfg, be.spec.opt,
-                                      ctl_mod.job_seed("be0"), device="cuda")
-        step, base = trainer.make_train_step(cfg, be.spec.opt), []
-        for i in range(be.spec.total_steps):
-            st, m = step(st, make_batch(cfg, be.spec.batch, be.spec.seq_len,
-                                        seed=1, step=i, device="cuda"))
-            base.append(float(m["loss"]))
-        del st
+        be = out["cuda", "be_te", "fitgpp"].jobs[0]
+        be_vlm = out["cuda", "be_te_vlm", "fitgpp"].jobs[0]
+        base = uninterrupted_losses(cfg, be.spec, ctl_mod)
+        base_vlm = uninterrupted_losses(vlm_cfg, be_vlm.spec, ctl_mod)
         first = be0_first_loss_bound(torch, cfg, be.spec, ctl_mod)
+        first_vlm = be0_first_loss_bound(torch, vlm_cfg, be_vlm.spec,
+                                         ctl_mod)
     finally:
+        torch.set_num_threads(threads)
         shutil.rmtree(tmp, ignore_errors=True)
 
     def log(c):
@@ -3491,9 +3592,11 @@ def phase_controller(torch, np):
     victim = out["cuda", "victim", "fitgpp"]
     ssm_victim = next((e["job"] for e in victim.events
                        if e["ev"] == "preempt"), None)
-    first["card"] = be.losses[0]
-    first["cpu"] = out["cpu", "be_te", "fitgpp"].jobs[0].losses[0]
-    first["diff"] = abs(first["card"] - first["cpu"])
+    for f, case, job in ((first, "be_te", be), (first_vlm, "be_te_vlm",
+                                                  be_vlm)):
+        f["card"] = job.losses[0]
+        f["cpu"] = out["cpu", case, "fitgpp"].jobs[0].losses[0]
+        f["diff"] = abs(f["card"] - f["cpu"])
     emit({"phase": "controller", "arch": cfg.name, "dtype": cfg.dtype,
           "runs": {f"{case}/{policy}": summary(out["cuda", case, policy])
                    for case, policy in runs},
@@ -3508,10 +3611,16 @@ def phase_controller(torch, np):
           "ssm_first_victim": ssm_victim,
           "ssm_victim_preempt_count": {
               j.spec.name: j.preempt_count for j in victim.jobs},
-          "be0_first_loss": first})
-    check(be.preempt_count == 1, f"be0 preempted {be.preempt_count} times")
-    check(be.losses == base, "be0's losses across its preemption differ "
-          "from its uninterrupted run")
+          "be0_first_loss": first, "vlm_arch": vlm_cfg.name,
+          "vlm_be0_preempt_count": be_vlm.preempt_count,
+          "vlm_be0_losses_bit_equal": be_vlm.losses == base_vlm,
+          "vlm_be0_first_loss": first_vlm})
+    for job, b, what in ((be, base, cfg.name), (be_vlm, base_vlm,
+                                                vlm_cfg.name)):
+        check(job.preempt_count == 1,
+              f"{what}: be0 preempted {job.preempt_count} times")
+        check(job.losses == b, f"{what}: be0's losses across its preemption "
+              "differ from its uninterrupted run")
     check(sd_fitgpp < sd_fifo, f"TE slowdown under fitgpp {sd_fitgpp} is "
           f"not below fifo's {sd_fifo}")
     check(first_victim == "be_short_gp" and
@@ -3519,15 +3628,16 @@ def phase_controller(torch, np):
           f"the fleet's victim was {first_victim}, not the short-GP job")
     check(all(same_log.values()), f"event logs differ from the CPU's: "
           f"{same_log}")
-    check(first["init_bit_equal"] and first["tokens_bit_equal"],
-          "be0's initial parameters or first batch differ between the card "
-          "and the CPU")
-    check(first["max_logit_diff"] <= first["logit_tol"], f"be0's first "
-          f"logits on the card differ from the CPU's by "
-          f"{first['max_logit_diff']} (tolerance {first['logit_tol']})")
-    check(first["diff"] <= first["bound"], f"be0's first loss on the card "
-          f"{first['card']} differs from the CPU's {first['cpu']} by more "
-          f"than {first['bound']}")
+    for f, what in ((first, cfg.name), (first_vlm, vlm_cfg.name)):
+        check(f["init_bit_equal"] and f["tokens_bit_equal"],
+              f"{what}: be0's initial parameters or first batch differ "
+              "between the card and the CPU")
+        check(f["max_logit_diff"] <= f["logit_tol"], f"{what}: be0's first "
+              f"logits on the card differ from the CPU's by "
+              f"{f['max_logit_diff']} (tolerance {f['logit_tol']})")
+        check(f["diff"] <= f["bound"], f"{what}: be0's first loss on the "
+              f"card {f['card']} differs from the CPU's {f['cpu']} by more "
+              f"than {f['bound']}")
     check(ssm_sd["fitgpp"] < ssm_sd["fifo"], f"{ssm_cfg.name}: TE slowdown "
           f"under fitgpp {ssm_sd['fitgpp']} is not below fifo's "
           f"{ssm_sd['fifo']}")
@@ -3550,6 +3660,21 @@ def phase_controller(torch, np):
 BE0_LOGIT_STEPS = 4
 
 
+def uninterrupted_losses(cfg, spec, ctl_mod):
+    """A controller job's losses trained on the card without a break:
+    the same seed, batches and steps."""
+    from repro_torch import trainer
+    from repro_torch.data import make_batch
+    st = trainer.init_train_state(cfg, spec.opt, ctl_mod.job_seed(spec.name),
+                                  device="cuda")
+    step, losses = trainer.make_train_step(cfg, spec.opt), []
+    for i in range(spec.total_steps):
+        st, m = step(st, make_batch(cfg, spec.batch, spec.seq_len, seed=1,
+                                    step=i, device="cuda"))
+        losses.append(float(m["loss"]))
+    return losses
+
+
 def be0_first_loss_bound(torch, cfg, spec, ctl_mod):
     """be0's initial parameters and first batch on the card and on the
     CPU (equal bit for bit, by construction), their logits through the
@@ -3561,30 +3686,38 @@ def be0_first_loss_bound(torch, cfg, spec, ctl_mod):
     reach). A token's CE has gradient softmax - onehot in the logits,
     of L1 norm at most 2, so |dCE| <= 2 max|dz| for each token and for
     their mean; the second term bounds the f32 rounding of each side's
-    logsumexp over V classes and mean over n tokens."""
+    logsumexp over V classes and mean over n tokens. The vlm's logits
+    are its text positions' (the visual prefix is not predicted)."""
     from repro_torch import trainer
     from repro_torch.data import make_batch
-    from repro_torch.models import dense
+    from repro_torch.models import dense, vlm
     out = {}
     for dev in ("cuda", "cpu"):
         st = trainer.init_train_state(cfg, spec.opt,
                                       ctl_mod.job_seed(spec.name),
                                       device=dev)
-        tok = make_batch(cfg, spec.batch, spec.seq_len, seed=1, step=0,
-                         device=dev)["tokens"]
+        b = make_batch(cfg, spec.batch, spec.seq_len, seed=1, step=0,
+                       device=dev)
         with torch.no_grad():
             m = st["params"]
-            z = dense.unembed(cfg, m, dense.hidden(cfg, m, tok, train=True))
+            if cfg.family == "vlm":
+                x = dense.hidden_embedded(
+                    cfg, m, vlm._embed_multimodal(cfg, m, b), train=True)
+                z = dense.unembed(cfg, m, x)[:, cfg.vlm.n_visual_tokens:]
+            else:
+                z = dense.unembed(cfg, m, dense.hidden(cfg, m, b["tokens"],
+                                                       train=True))
         out[dev] = ({k: v.detach().cpu() for k, v in m.state_dict().items()},
-                    tok.cpu(), z.float().cpu())
-    (pc, tc, zc), (pp, tp, zp) = out["cuda"], out["cpu"]
+                    {k: v.cpu() for k, v in b.items()}, z.float().cpu())
+    (pc, bc, zc), (pp, bp, zp) = out["cuda"], out["cpu"]
+    tc = bp["tokens"]
     n_tok = tc.shape[0] * (tc.shape[1] - 1)
     z_max = float(zp.abs().max())
     logit_tol = BE0_LOGIT_STEPS * 2.0 ** (math.floor(math.log2(z_max)) - 7)
     # a token's CE is at most its logsumexp plus its largest |logit|
     scale = float(torch.logsumexp(zp, -1).abs().max()) + z_max
     return {"init_bit_equal": all(torch.equal(pc[k], pp[k]) for k in pp),
-            "tokens_bit_equal": bool(torch.equal(tc, tp)),
+            "tokens_bit_equal": all(torch.equal(bc[k], bp[k]) for k in bp),
             "max_logit_diff": float((zc - zp).abs().max()),
             "max_abs_logit": z_max, "logit_tol": logit_tol,
             "bound": 2 * logit_tol
@@ -3596,7 +3729,8 @@ PHASES = ("build", "kernel", "flash_kernel", "ssd_kernel", "lru_kernel",
           "stream", "sweep", "serve", "serve_f32", "serve_card_vs_cpu",
           "serve_ssm", "serve_hybrid", "serve_moe", "serve_vlm",
           "serve_audio", "train", "train_ssm",
-          "train_hybrid", "controller")
+          "train_hybrid", "train_moe", "train_vlm", "train_audio",
+          "controller")
 # run only when named in --phases
 EXTRA_PHASES = ("sweep_b1",)
 
@@ -3679,14 +3813,15 @@ def main(argv=None) -> int:
         if "train" in phases:
             phase_train(torch)
             phase_train_card_vs_cpu(torch)
-        for arch in (SSM_ARCH, HYBRID_ARCH):
-            path = "train_ssm" if arch == SSM_ARCH else "train_hybrid"
+        for path, arch, *run in TRAIN_FAMILIES:
             if path not in phases:
                 continue
-            for name, n in phase_train_family(torch, arch).items():
+            for name, n in phase_train_family(torch, path, arch,
+                                              *run).items():
                 if n:
                     launches.setdefault(name, {})[path] = n
-            phase_train_family_card_vs_cpu(torch, arch)
+            if arch in (SSM_ARCH, HYBRID_ARCH):
+                phase_train_family_card_vs_cpu(torch, arch)
         if "controller" in phases:
             phase_controller(torch, np)
     except SmokeFailure as e:

@@ -37,8 +37,11 @@ F64 = torch.float64
 M32 = 0xFFFFFFFF
 MIX = 0x45D9F3B       # odd, < 2**31: a 32-bit product stays below 2**63
 # elements a slice of a draw handles at a time: bounds the int64 and
-# float64 temporaries (32 MiB each)
-SLICE = 1 << 22
+# float64 temporaries (256 MiB each). A slice is about 40 kernels and a
+# host read, whatever its size, so a smaller one makes a full-size init
+# wait on the host (qwen3-moe-30b-a3b's 30.5e9 parameters took 21.0 s in
+# slices of 2^22 on the H100)
+SLICE = 1 << 25
 
 # Acklam's coefficients (central numerator a, denominator b; tails c, d)
 _A = (-3.969683028665376e+01, 2.209460984245205e+02, -2.759285104469687e+02,

@@ -1,5 +1,5 @@
-"""Training driver: an end-to-end train loop for any ported ``--arch``
-(the dense, ssm and hybrid families).
+"""Training driver: an end-to-end train loop for any ``--arch`` (the
+dense, moe, ssm, hybrid, audio and vlm families).
 
     python -m repro_torch.launch.train --arch stablelm-12b [--smoke] \\
         [--steps 20] [--batch 4] [--seq-len 64] [--microbatches 1] \\
@@ -9,8 +9,9 @@ Runs real steps on the current CUDA device unless ``--device`` names
 another (``--device cpu`` runs the plain PyTorch path on the CPU).
 Counterpart of ``repro.launch.train``, without its mesh and sharding
 plan (one device). :func:`train` is the loop ``main`` wraps; it also
-takes a config directly (a depth-cut one, say) and can resume from a
-state at a given step.
+takes a config directly (a depth-cut one, say), an AdamW config of the
+caller's (bfloat16 moments, say; the CLI keeps JAX's float32 ones) and
+can resume from a state at a given step.
 """
 from __future__ import annotations
 
@@ -43,15 +44,17 @@ def opt_config(steps: int, lr: float) -> AdamWConfig:
 def train(cfg, *, steps: int = 20, batch: int = 4, seq_len: int = 64,
           microbatches: int = 1, lr: float = 1e-3, seed: int = 0,
           log_every: int = 5, device=None, state: Optional[dict] = None,
-          start: int = 0,
+          start: int = 0, opt_cfg: Optional[AdamWConfig] = None,
           on_step: Optional[Callable[[int, dict, dict], None]] = None,
           log: Optional[Callable[[str], None]] = print) -> TrainResult:
     """Steps ``start`` .. ``steps - 1`` of a run of ``steps``: batch ``i``
-    is ``make_batch(cfg, batch, seq_len, seed, i)``. ``state`` resumes a
-    run (default: a new state from ``seed``); ``on_step(i, state,
-    metrics)`` runs after each step."""
+    is ``make_batch(cfg, batch, seq_len, seed, i)`` (with the audio and
+    vlm families' embeddings). ``opt_cfg`` replaces
+    ``opt_config(steps, lr)``; ``state`` resumes a run (default: a new
+    state from ``seed``); ``on_step(i, state, metrics)`` runs after each
+    step."""
     dev = _device.resolve(device)
-    ocfg = opt_config(steps, lr)
+    ocfg = opt_cfg if opt_cfg is not None else opt_config(steps, lr)
     if state is None:
         state = trainer.init_train_state(cfg, ocfg, seed, device=dev)
     step_fn = trainer.make_train_step(cfg, ocfg, microbatches)

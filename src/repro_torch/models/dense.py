@@ -234,6 +234,12 @@ def init_leaves(model: nn.Module, defs: dict, seed: int,
                     common.init_(model.leaf(lname, li, name), ld, seed,
                                  leaf, start=li * n)
             leaf += 1
+    if device.type == "cuda":
+        # hand the draws' float64 temporaries back to the device: left in
+        # the allocator's cache, their blocks are split by what is
+        # allocated next (a train state's moments, which live on) and
+        # fragment the pool a training step then needs
+        torch.cuda.empty_cache()
     return model
 
 

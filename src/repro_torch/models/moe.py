@@ -23,6 +23,18 @@ over E. Nothing in the layer waits on the host (no boolean indexing,
 no ``bincount``), so decode queues a step's layers without a sync. The
 JAX package's ``moe_block_einsum`` (dense one-hot dispatch) is not
 ported; the tests hold this module against it.
+
+Training (``hidden(train=True)``, each layer under ``cfg.remat``) goes
+through the same layer. Its backward repeats bit for bit on the card:
+the gather of the expert outputs scatters its gradient back with
+atomic adds, but every kept assignment owns its row and a dropped one
+adds an exact 0; a token's k copies are an expand, whose gradient is a
+sum in a fixed order. The remat recompute picks the forward's routes:
+it recomputes the router from the same input with the same
+operations, and the stable sort breaks ties the same way. The f
+factor of the load-balance loss comes from integer counts, so the
+loss reaches ``w_router`` only through the mean probabilities, as in
+JAX.
 """
 from __future__ import annotations
 
@@ -157,11 +169,11 @@ def moe_block(cfg: ModelConfig, mlp: nn.Module, x: torch.Tensor
     group = torch.arange(B, device=x.device)[:, None]
     rows = torch.where(keep, idx.reshape(B, -1) * (B * C) + group * C + pos,
                        n).reshape(-1)
-    # token of each (token, k) assignment (an integer division, where
-    # repeat_interleave may size its output on the host)
-    src = (group * S + torch.arange(S * k, device=x.device) // k).reshape(-1)
-    xin = h.new_zeros(n + 1, D).index_copy_(0, rows,
-                                            h.reshape(B * S, D)[src])
+    # each token's row once for each of its k assignments, in (token, k)
+    # order: an expand, whose backward sums a token's k gradients in a
+    # fixed order
+    hk = h.reshape(B * S, 1, D).expand(B * S, k, D).reshape(B * S * k, D)
+    xin = h.new_zeros(n + 1, D).index_copy_(0, rows, hk)
     yout = _expert_ffn(cfg, mlp, xin[:n].view(E, B * C, D)).view(n, D)
     gath = torch.where(keep.reshape(-1, 1),
                        yout.index_select(0, rows.clamp_max(n - 1)), 0)

@@ -1,9 +1,12 @@
 """Train-step factory: autograd + AdamW + gradient accumulation
 (counterpart of ``repro.trainer``).
 
-Microbatching (``microbatches > 1``) splits the global batch along its
+Microbatching (``microbatches > 1``) splits every array of the global
+batch (the tokens, and the vlm's and audio's embeddings) along its
 batch axis and accumulates the microbatches' gradients in float32, so
 the activations held for one backward shrink by the microbatch factor.
+The AdamW config sets the moments' type (``moment_dtype="bfloat16"``
+halves their bytes, as the JAX package's plans do for the big archs).
 
 A train state is ``{"params": model, "opt": {"m", "v", "step"}}``: the
 model module (its parameters require grad), and the AdamW moments keyed

@@ -1,15 +1,19 @@
 """The port's live preemption controller against the JAX package's, on
 the CPU at smoke size.
 
-Both controllers drive real train jobs of the dense smoke configs (the
-JAX suite's preempt/resume case uses a vlm config, which the port does
-not have yet) on their package's ``SchedulerCore``; the JAX suite's two
-cases that train the mamba2 smoke config run on the port as they are. Their event
-logs (without the checkpoint paths), preemption counts, finish times
-and slowdowns must be equal: the grace periods estimated from the live
-train state agree because the two states count the same bytes. Also
-the port's versions of the JAX suite's three ``TestController`` cases
-and of its check that the controller owns no queue logic."""
+Both controllers drive real train jobs on their package's
+``SchedulerCore``: the dense smoke config, and the JAX suite's
+preempt/resume case on its own config, internvl2-2b's smoke (vlm: its
+batches carry patch embeddings beside the tokens); the JAX suite's two
+cases that train the mamba2 smoke config run on the port as they are.
+Their event logs (without the checkpoint paths), preemption counts,
+finish times and slowdowns must be equal: the grace periods estimated
+from the live train state agree because the two states count the same
+bytes. The losses are not compared across the packages (each draws its
+own initial parameters); the port's are finite, and be0's across its
+preemption equal its uninterrupted run's bit for bit. Also the port's
+versions of the JAX suite's three ``TestController`` cases and of its
+check that the controller owns no queue logic."""
 import inspect
 
 import jax
@@ -82,11 +86,16 @@ def outcome(c):
               j.run_ticks, c.slowdown(j)) for j in c.jobs])
 
 
-@pytest.mark.parametrize("case", ["be_te", "fleet"])
+# the JAX suite's preempt/resume case trains this config
+VLM_ARCH = "internvl2-2b"
+
+
+@pytest.mark.parametrize("case", ["be_te", "fleet", "be_te_vlm"])
 def test_controller_matches_jax(case, tmp_path):
-    jcfg = jconfigs.get_smoke_config(ARCH)
-    tcfg = tconfigs.get_smoke_config(ARCH)
-    run = be_te_case if case == "be_te" else fleet_case
+    arch = VLM_ARCH if case == "be_te_vlm" else ARCH
+    jcfg = jconfigs.get_smoke_config(arch)
+    tcfg = tconfigs.get_smoke_config(arch)
+    run = fleet_case if case == "fleet" else be_te_case
     jc = run(jcontroller, jcfg, workdir=str(tmp_path / "jax"))[0]
     tc = run(tcontroller, tcfg, workdir=str(tmp_path / "port"),
              device="cpu")[0]
@@ -122,8 +131,9 @@ def test_estimated_grace_period_matches_jax():
 
 # -- the JAX suite's TestController cases, on the port -----------------------
 
-def test_preempt_resume_bit_exact(tmp_path):
-    cfg = tconfigs.get_smoke_config(ARCH)
+@pytest.mark.parametrize("arch", [ARCH, VLM_ARCH])
+def test_preempt_resume_bit_exact(tmp_path, arch):
+    cfg = tconfigs.get_smoke_config(arch)
     c, be, te = be_te_case(tcontroller, cfg, workdir=str(tmp_path),
                            device="cpu")
     # uninterrupted baseline from the same seed and data cursor

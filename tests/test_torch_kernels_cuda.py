@@ -784,14 +784,14 @@ def test_full_width_stablelm_layer_init_on_card_equals_cpu(cuda_device):
             got.append(t.cpu())
         assert torch.equal(got[0], got[1]), name
         leaf += 1
-def _smoke_train_steps(device, n=2):
-    """``n`` float32 train steps of the dense smoke config from seed 0 on
+def _smoke_train_steps(device, n=2, arch="stablelm-12b"):
+    """``n`` float32 train steps of ``arch``'s smoke config from seed 0 on
     ``device``: (losses, parameters after the steps as CPU tensors)."""
     from repro_torch import trainer
     from repro_torch.configs import get_smoke_config
     from repro_torch.data import make_batch
     from repro_torch.optim import AdamWConfig, adamw_init
-    cfg = get_smoke_config("stablelm-12b").replace(dtype="float32")
+    cfg = get_smoke_config(arch).replace(dtype="float32")
     ocfg = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=10)
     model = trainer.init_train_state(cfg, ocfg, 0, device="cpu")["params"]
     model = model.to(device)
@@ -799,7 +799,7 @@ def _smoke_train_steps(device, n=2):
     step, losses = trainer.make_train_step(cfg, ocfg), []
     for i in range(n):
         batch = make_batch(cfg, 4, 64, 0, i, device="cpu")
-        state, m = step(state, {"tokens": batch["tokens"].to(device)})
+        state, m = step(state, {k: v.to(device) for k, v in batch.items()})
         losses.append(float(m["loss"]))
     return losses, {k: p.detach().cpu() for k, p in
                     state["params"].named_parameters()}
@@ -829,6 +829,74 @@ def test_dense_train_step_repeats_on_card_and_matches_cpu(cuda_device):
     for k in p1:
         err = float((p1[k] - p_cpu[k]).norm() / p_cpu[k].norm())
         assert err <= 1e-4, (k, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "mixtral-8x22b",
+                                  "internvl2-2b", "whisper-large-v3"])
+def test_family_train_step_repeats_on_card_and_matches_cpu(cuda_device,
+                                                           arch):
+    """Two f32 smoke train steps of the moe, vlm and audio families on
+    the card (TF32 off; the vlm's and audio's batches with their
+    embeddings) launch no kernel, repeat bit for bit (the moe's gather
+    backward adds each kept assignment's gradient to a row of its own
+    and exact zeros elsewhere; a token's k copies are an expand), and
+    agree with the CPU's within 1e-4: each loss relative, each parameter
+    leaf of its norm, as the dense family's."""
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        before = dict(tops.LAUNCHES)
+        loss1, p1 = _smoke_train_steps(cuda_device, arch=arch)
+        loss2, p2 = _smoke_train_steps(cuda_device, arch=arch)
+        assert dict(tops.LAUNCHES) == before
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    assert loss1 == loss2
+    assert all(torch.equal(p1[k], p2[k]) for k in p1)
+    loss_cpu, p_cpu = _smoke_train_steps("cpu", arch=arch)
+    for a, b in zip(loss1, loss_cpu):
+        assert abs(a - b) <= 1e-4 * abs(b), (loss1, loss_cpu)
+    for k in p1:
+        err = float((p1[k] - p_cpu[k]).norm() / p_cpu[k].norm())
+        assert err <= 1e-4, (k, err)
+
+
+@pytest.mark.cuda
+def test_full_width_moe_layer_remat_recompute_picks_the_forward_routes(
+        cuda_device):
+    """One qwen3-moe-30b-a3b layer at its published widths (128 experts,
+    top 8; bf16, remat "full") through the training loss and its
+    backward on 2 x 2048 tokens: the router runs twice (the forward and
+    the recompute), and the recompute's picks equal the forward's for
+    every token, ties included (``moe.top_k``'s output recorded as phase
+    serve_moe's ``Routes`` records it)."""
+    from repro_torch import models
+    from repro_torch.configs import get_config
+    from repro_torch.data import make_batch
+    from repro_torch.models import moe
+    cfg = get_config("qwen3-moe-30b-a3b").replace(n_layers=1)
+    assert cfg.dtype == "bfloat16" and cfg.remat == "full"
+    model = models.init(cfg, 0, device=cuda_device).requires_grad_(True)
+    batch = make_batch(cfg, 2, 2048, 0, 0, device=cuda_device)
+    picks, top_k = [], moe.top_k
+
+    def recording(probs, k):
+        vals, idx = top_k(probs, k)
+        picks.append(idx.clone())
+        return vals, idx
+
+    moe.top_k = recording
+    try:
+        loss = models.loss_fn(cfg, model, batch)
+        grads = torch.autograd.grad(loss, list(model.parameters()))
+    finally:
+        moe.top_k = top_k
+    assert len(picks) == 2
+    assert picks[0].shape == (2, 2048, cfg.moe.top_k)
+    assert torch.equal(picks[0], picks[1])
+    assert bool(torch.isfinite(loss)) and all(
+        bool(torch.isfinite(g).all()) for g in grads)
 
 
 def _serve_card_and_cpu(arch, prompt_len=40, steps=4):

@@ -1,11 +1,14 @@
-"""The port's training slice against the JAX package: AdamW, the dense,
-ssm and hybrid losses and their gradients, the train step, the
-checkpoint and the train launcher, on the CPU at smoke size.
+"""The port's training slice against the JAX package: AdamW, the losses
+of every family (dense, ssm, hybrid, moe, vlm, audio) and their
+gradients, the train step, the checkpoint and the train launcher, on
+the CPU at smoke size.
 
 Both packages start from the same numbers: the JAX package's initial
 train state (``repro.trainer.init_train_state``), as numpy, carried into
 the port by ``convert.train_state_from_numpy``; batches are numpy
-tokens from a seed. Tolerances, float32: AdamW within 1e-6 of each
+tokens from a seed, and for the vlm and audio families numpy normals
+(times 0.3, as ``make_batch`` scales them) for their patch or frame
+embeddings. Tolerances, float32: AdamW within 1e-6 of each
 leaf's largest magnitude (both sides round the same f32 operations; XLA
 may fuse a multiply-add); the loss within 1e-5 relative and each
 gradient within 1e-4 of its own largest magnitude (the two sum matrix
@@ -40,7 +43,7 @@ from repro_torch import tree as ttree
 from repro_torch.checkpoint import (estimate_grace_period, load_pytree,
                                     load_tree, save_pytree, state_bytes)
 from repro_torch.launch import train as ttrain
-from repro_torch.models import convert
+from repro_torch.models import convert, dense
 from repro_torch.optim import adamw as tadamw
 
 ARCHS = ["stablelm-12b", "command-r-35b", "nemotron-4-340b"]
@@ -173,6 +176,32 @@ def tokens(vocab, B, S, seed):
         .astype(np.int32)
 
 
+def batch_np(cfg, B, S, seed):
+    """A numpy batch: ``tokens(cfg.vocab, B, S, seed)``, and for the vlm
+    and audio families their stub embeddings from the same generator,
+    (B, n_visual, d_visual) or (B, frames, d_model) normals times 0.3."""
+    rng = np.random.default_rng(seed)
+    out = {"tokens": rng.integers(0, cfg.vocab, (B, S)).astype(np.int32)}
+    if cfg.family == "vlm":
+        shape, key = (B, cfg.vlm.n_visual_tokens, cfg.vlm.d_visual), \
+            "visual_embeds"
+    elif cfg.family == "audio":
+        shape, key = (B, cfg.encoder.n_frontend_tokens, cfg.d_model), \
+            "audio_embeds"
+    else:
+        return out
+    out[key] = (rng.standard_normal(shape) * 0.3).astype(np.float32)
+    return out
+
+
+def jbatch(b):
+    return {k: jnp.asarray(v) for k, v in b.items()}
+
+
+def tbatch(b):
+    return {k: torch.from_numpy(v) for k, v in b.items()}
+
+
 def jax_state(arch, dtype="float32", moments="float32", seed=0, **opt):
     jcfg = jconfigs.get_smoke_config(arch).replace(dtype=dtype)
     ocfg = jadamw.AdamWConfig(moment_dtype=moments, **opt)
@@ -187,11 +216,20 @@ def port_state(arch, jstate, dtype="float32"):
 
 def param_pairs(model, jtree):
     """(port tensor, JAX numpy leaf, name) for every parameter, stacked
-    JAX leaves split by layer."""
+    JAX leaves split by layer: each stack of the family (``layers``, the
+    moe's expert stacks among them; the hybrid's ``rec`` and ``attn``;
+    whisper's ``enc`` and ``dec``); a dict whose leaves are not stacked
+    (vlm's ``projector``) leaf for leaf."""
+    defs = tmodels.get_module(model.cfg).param_defs(model.cfg)
     out = []
     for name, a in jtree.items():
         if isinstance(a, dict):
             for lname, la in a.items():
+                if not dense.is_stacked(defs[name][lname]):
+                    out.append((model.leaf(lname, None, name),
+                                np.asarray(la, np.float32),
+                                f"{name}.{lname}"))
+                    continue
                 for li in range(la.shape[0]):
                     out.append((model.leaf(lname, li, name),
                                 np.asarray(la[li], np.float32),
@@ -204,12 +242,11 @@ def param_pairs(model, jtree):
 def loss_and_grads_against_jax(arch, jit=False):
     jcfg, _, js = jax_state(arch)
     cfg, st = port_state(arch, js)
-    toks = tokens(cfg.vocab, 2, 24, 5)
-    vg = jax.value_and_grad(
-        lambda p: jmodels.loss_fn(jcfg, p, {"tokens": jnp.asarray(toks)}))
+    b = batch_np(cfg, 2, 24, 5)
+    vg = jax.value_and_grad(lambda p: jmodels.loss_fn(jcfg, p, jbatch(b)))
     jloss, jgrads = (jax.jit(vg) if jit else vg)(js["params"])
     model = st["params"]
-    loss = tmodels.loss_fn(cfg, model, {"tokens": torch.from_numpy(toks)})
+    loss = tmodels.loss_fn(cfg, model, tbatch(b))
     assert loss.dtype == torch.float32 and loss.dim() == 0
     assert rel_err(float(loss.detach()), float(jloss)) <= 1e-5
     grads = dict(zip([n for n, _ in model.named_parameters()],
@@ -219,6 +256,10 @@ def loss_and_grads_against_jax(arch, jit=False):
     assert len(pp) == len(grads)
     for p, want, name in pp:
         assert rel_err(to_np(grads[names[id(p)]]), want) <= 1e-4, name
+    if cfg.family == "moe":      # the router learns, through p alone
+        for li in range(cfg.n_layers):
+            g = grads[names[id(model.leaf("w_router", li))]]
+            assert float(g.abs().max()) > 0, li
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -226,15 +267,24 @@ def test_dense_loss_and_grads_match_jax(arch):
     loss_and_grads_against_jax(arch)
 
 
-@pytest.mark.parametrize("arch", ["mamba2-1.3b", "recurrentgemma-9b"])
+# the families past the dense one: ssm, hybrid, then moe, vlm and audio
+FAMILY_ARCHS = ["mamba2-1.3b", "recurrentgemma-9b", "qwen3-moe-30b-a3b",
+                "mixtral-8x22b", "internvl2-2b", "whisper-large-v3"]
+
+
+@pytest.mark.parametrize("arch", FAMILY_ARCHS)
 def test_ssm_and_hybrid_loss_and_grads_match_jax(arch):
-    """The ssm and hybrid training routes (the plain intra-chunk term;
-    the sequential RG-LRU, which autograd differentiates on the CPU)
-    against JAX's ``loss_fn`` (its jnp ``y_diag``, its associative
-    scan) and gradients, float32: the loss within 1e-5 relative and
-    each gradient within 1e-4 of its largest magnitude, as the dense
-    family's (the scans differ only in the order of their products and
-    sums)."""
+    """The training routes of the families past the dense one against
+    JAX's ``loss_fn`` and gradients, float32: the loss within 1e-5
+    relative and each gradient within 1e-4 of its largest magnitude, as
+    the dense family's. The ssm's plain intra-chunk term and the
+    hybrid's sequential RG-LRU (which autograd differentiates on the
+    CPU) against JAX's jnp ``y_diag`` and associative scan (the scans
+    differ only in the order of their products and sums); the moe's
+    routed layer under remat, its load-balance loss included (every
+    layer's ``w_router`` gets a nonzero gradient); the vlm's text-only
+    loss after its projected visual prefix (the projector's gradient);
+    whisper's encoder and decoder stacks and its tied unembedding."""
     loss_and_grads_against_jax(arch, jit=True)
 
 
@@ -252,13 +302,12 @@ def three_steps_against_jax(arch, dtype, tol, param_tol=1e-5):
     opt = dict(lr=1e-3, warmup_steps=1, total_steps=10)
     jcfg, jocfg, js = jax_state(arch, dtype, **opt)
     cfg, st = port_state(arch, js, dtype)
-    toks = [tokens(cfg.vocab, 4, 32, 10 + i) for i in range(3)]
+    batches = [batch_np(cfg, 4, 32, 10 + i) for i in range(3)]
     jstep = jax.jit(jtrainer.make_train_step(jcfg, jocfg))
-    js, jlosses, jn = run_steps(jstep, js,
-                                [{"tokens": jnp.asarray(t)} for t in toks])
+    js, jlosses, jn = run_steps(jstep, js, [jbatch(b) for b in batches])
     st, losses, n = run_steps(
         ttrainer.make_train_step(cfg, tadamw.AdamWConfig(**opt)), st,
-        [{"tokens": torch.from_numpy(t)} for t in toks])
+        [tbatch(b) for b in batches])
     assert n == jn == 3 and int(st["opt"]["step"]) == 3
     for got, want in zip(losses, jlosses):
         assert rel_err(got, want) <= tol, (losses, jlosses)
@@ -282,30 +331,44 @@ def test_three_train_steps_match_jax(dtype, tol):
 # zero into up to lr of parameter; the leaves that start at zero (norm
 # gains, gate biases) hold only three steps' updates, so one such entry
 # is a visible share of their norm (rec.norm[0] 1.3e-5, attn.mlp_norm[0]
-# 1.4e-5 of it in this sandbox; every other leaf below 1e-5)
-PARAM_TOL = {"mamba2-1.3b": 1e-5, "recurrentgemma-9b": 5e-5}
+# 1.4e-5 of it in this sandbox; every other leaf below 1e-5). Whisper's
+# likewise: its zero-initialised bias ``dec.cross_bv[1]`` reads 3.0e-5 of
+# its norm (its gradient is the sum over the batch's positions of the
+# cross-attention output's gradient, whose terms nearly cancel), every
+# other leaf below 3.1e-6
+PARAM_TOL = {"mamba2-1.3b": 1e-5, "recurrentgemma-9b": 5e-5,
+             "qwen3-moe-30b-a3b": 1e-5, "mixtral-8x22b": 1e-5,
+             "internvl2-2b": 1e-5, "whisper-large-v3": 5e-5}
 
 
 @pytest.mark.parametrize("arch,dtype,tol", [
     ("mamba2-1.3b", "float32", 1e-5),
     ("recurrentgemma-9b", "float32", 1e-5),
-    ("recurrentgemma-9b", "bfloat16", 5e-2)])
+    ("recurrentgemma-9b", "bfloat16", 5e-2),
+    ("qwen3-moe-30b-a3b", "float32", 1e-5),
+    ("mixtral-8x22b", "float32", 1e-5),
+    ("internvl2-2b", "float32", 1e-5),
+    ("whisper-large-v3", "float32", 1e-5),
+    ("qwen3-moe-30b-a3b", "bfloat16", 5e-2)])
 def test_ssm_and_hybrid_three_train_steps_match_jax(dtype, tol, arch):
-    """Three ssm or hybrid train steps against JAX's jitted train step
-    on the same state: the losses within 1e-5 (f32) or 5e-2 (bf16)
-    relative, the f32 parameters within :data:`PARAM_TOL`. One bf16
-    case, the hybrid's: its float32 ``lam`` beside bfloat16 leaves."""
+    """Three train steps of a family past the dense one against JAX's
+    jitted train step on the same state: the losses within 1e-5 (f32)
+    or 5e-2 (bf16) relative, the f32 parameters within
+    :data:`PARAM_TOL`. Two bf16 cases: the hybrid's (its float32 ``lam``
+    beside bfloat16 leaves) and qwen3-moe's (its router's bf16 logits
+    round at other points, so a route may differ)."""
     three_steps_against_jax(arch, dtype, tol, PARAM_TOL[arch])
 
 
-def test_microbatch_equivalence():
+@pytest.mark.parametrize("arch", ["stablelm-12b", "internvl2-2b"])
+def test_microbatch_equivalence(arch):
     """grad accumulation over 2 microbatches == the full-batch step (the
-    JAX suite's ``TestTrainer`` case, on the port)."""
-    arch = "stablelm-12b"
+    JAX suite's ``TestTrainer`` case, on the port); internvl2's batch
+    splits its visual embeddings with its tokens."""
     jcfg, _, js = jax_state(arch)
     ocfg = tadamw.AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=10,
                               grad_clip=0.0)
-    batch = {"tokens": torch.from_numpy(tokens(512, 4, 32, 0))}
+    batch = tbatch(batch_np(tconfigs.get_smoke_config(arch), 4, 32, 0))
     out = []
     for mb in (1, 2):
         cfg, st = port_state(arch, js)
@@ -418,16 +481,22 @@ def test_checkpoint_roundtrip_bf16(tmp_path):
         load_pytree(bad, path)           # float32 moments in the template
 
 
-@pytest.mark.parametrize("arch", ["mamba2-1.3b", "recurrentgemma-9b"])
+# one arch of each family past the dense one
+CKPT_ARCHS = ["mamba2-1.3b", "recurrentgemma-9b", "qwen3-moe-30b-a3b",
+              "internvl2-2b", "whisper-large-v3"]
+
+
+@pytest.mark.parametrize("arch", CKPT_ARCHS)
 def test_checkpoint_roundtrip_ssm_and_hybrid(tmp_path, arch):
-    """A stepped bf16 ssm or hybrid state (the hybrid's float32 ``lam``
-    beside bfloat16 leaves, the two stacks) comes back bit for bit, each
-    leaf with its type."""
+    """A stepped bf16 state of a family past the dense one comes back bit
+    for bit, each leaf with its type: the hybrid's float32 ``lam``
+    beside bfloat16 leaves and its two stacks, the moe's expert stacks,
+    the vlm's unstacked ``projector``, whisper's ``enc`` and ``dec``."""
     cfg = tconfigs.get_smoke_config(arch)
     ocfg = tadamw.AdamWConfig(moment_dtype="bfloat16")
     st = ttrainer.init_train_state(cfg, ocfg, 1, device="cpu")
     st, _ = ttrainer.make_train_step(cfg, ocfg)(
-        st, {"tokens": torch.from_numpy(tokens(cfg.vocab, 2, 16, 0))})
+        st, tbatch(batch_np(cfg, 2, 16, 0)))
     path = str(tmp_path / "ck.npz")
     save_pytree(st, path)
     back = load_pytree(ttrainer.init_train_state(cfg, ocfg, 2,
@@ -442,11 +511,13 @@ def test_checkpoint_roundtrip_ssm_and_hybrid(tmp_path, arch):
         assert a[("opt", "m") + lam[0][1:]].dtype == torch.bfloat16
 
 
-@pytest.mark.parametrize("arch", ["mamba2-1.3b", "recurrentgemma-9b"])
+@pytest.mark.parametrize("arch", CKPT_ARCHS)
 def test_train_state_from_numpy_carries_ssm_and_hybrid(arch):
     """JAX's bf16 state with bf16 moments converts with every value in
     place: the hybrid's ``rec``/``attn`` stacks split into the right
-    layers, ``lam`` float32 beside its bfloat16 moments."""
+    layers, ``lam`` float32 beside its bfloat16 moments; the moe's
+    expert stacks, the vlm's ``projector`` (not a stack) and whisper's
+    ``enc``/``dec`` stacks, parameters and moments alike."""
     _, _, js = jax_state(arch, "bfloat16", "bfloat16", seed=3)
     cfg = tconfigs.get_smoke_config(arch)
     st = convert.train_state_from_numpy(cfg, np_tree(js), "cpu")
@@ -465,6 +536,82 @@ def test_train_state_from_numpy_carries_ssm_and_hybrid(arch):
     assert state_bytes(st) == jbytes(js)
 
 
+def ckpt_tree():
+    """A tree of every kind of leaf a train state holds: float32,
+    bfloat16, a 0-d int32 step, an empty leaf, a non-ASCII key."""
+    rng = np.random.default_rng(7)
+    return {"params": {
+        "w§x": torch.from_numpy(rng.standard_normal((37, 51))
+                                .astype(np.float32)),
+        "b": torch.from_numpy(rng.standard_normal(1000).astype(np.float32))
+        .to(torch.bfloat16)},
+        "opt": {"step": torch.tensor(3, dtype=torch.int32),
+                "e": torch.empty(0, 4)}}
+
+
+def test_checkpoint_file_is_np_savez_byte_for_byte(tmp_path, monkeypatch):
+    """The pipelined writer, its chunks cut small so every leaf spans
+    several written by concurrent threads (switching often), writes the
+    bytes ``np.savez`` writes for the same arrays (JAX's ``save_pytree``
+    layout: ``__meta__`` first, bfloat16 as uint16); the reader restores
+    them, and a flipped data byte raises."""
+    import json
+    import sys
+    import zipfile
+    from repro_torch.checkpoint import ckpt
+    monkeypatch.setattr(ckpt, "_CHUNK", 1000)
+    tree = ckpt_tree()
+    port, ref = str(tmp_path / "port.npz"), str(tmp_path / "ref.npz")
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        save_pytree(tree, port)
+    finally:
+        sys.setswitchinterval(interval)
+    flat = dict(ttree.flatten(tree))
+    packed = {"§".join(k): (t.view(torch.int16).numpy().view(np.uint16)
+                            if t.dtype == torch.bfloat16 else t.numpy())
+              for k, t in flat.items()}
+    meta = {k: "bfloat16" for k, a in packed.items() if a.dtype == np.uint16}
+    np.savez(ref, __meta__=json.dumps(meta), **packed)
+    with open(port, "rb") as a, open(ref, "rb") as b:
+        data = a.read()
+        assert data == b.read()
+    back = {"params": {"w§x": torch.zeros(37, 51),
+                       "b": torch.zeros(1000, dtype=torch.bfloat16)},
+            "opt": {"step": torch.tensor(0, dtype=torch.int32),
+                    "e": torch.empty(0, 4)}}
+    load_pytree(back, port)
+    for k, t in dict(ttree.flatten(back)).items():
+        assert t.dtype == flat[k].dtype and torch.equal(t, flat[k]), k
+    with zipfile.ZipFile(port) as zf:
+        info = zf.getinfo("params§w§x.npy")
+    bad = bytearray(data)
+    bad[info.header_offset + info.compress_size] ^= 1   # inside the data
+    with open(port, "wb") as f:
+        f.write(bad)
+    with pytest.raises(zipfile.BadZipFile, match="CRC"):
+        load_pytree(back, port)
+
+
+def test_jax_load_pytree_reads_a_port_checkpoint(tmp_path):
+    """JAX's ``load_pytree`` restores a file the port wrote into a JAX
+    template of the same tree, every leaf equal (bfloat16 included)."""
+    from repro.checkpoint import load_pytree as jload
+    tree = ckpt_tree()
+    path = str(tmp_path / "port.npz")
+    save_pytree(tree, path)
+    jtree = {"params": {"w§x": jnp.zeros((37, 51), jnp.float32),
+                        "b": jnp.zeros((1000,), jnp.bfloat16)},
+             "opt": {"step": jnp.zeros((), jnp.int32),
+                     "e": jnp.zeros((0, 4), jnp.float32)}}
+    back = jload(jtree, path)
+    for k, t in dict(ttree.flatten(tree)).items():
+        got = back[k[0]][k[1]]
+        assert got.dtype == jtree[k[0]][k[1]].dtype
+        assert np.array_equal(np.asarray(got, np.float32), to_np(t)), k
+
+
 @pytest.mark.parametrize("moments", ["float32", "bfloat16"])
 @pytest.mark.parametrize("arch", ["stablelm-12b", "command-r-35b"])
 def test_state_bytes_and_grace_period_match_jax(arch, moments):
@@ -479,11 +626,11 @@ def test_state_bytes_and_grace_period_match_jax(arch, moments):
     assert estimate_grace_period({}) == 0
 
 
-def test_jax_checkpoint_loads_through_the_converter(tmp_path):
+@pytest.mark.parametrize("arch", ["stablelm-12b", "qwen3-moe-30b-a3b"])
+def test_jax_checkpoint_loads_through_the_converter(tmp_path, arch):
     """A file JAX's ``save_pytree`` wrote (bf16 parameters and moments,
-    stacked layers) reads back in the port and converts to the port's
-    state with every value in place."""
-    arch = "stablelm-12b"
+    stacked layers; the moe's expert stacks) reads back in the port and
+    converts to the port's state with every value in place."""
     _, _, js = jax_state(arch, "bfloat16", "bfloat16", seed=3)
     path = str(tmp_path / "jax.npz")
     jsave(js, path)
@@ -509,7 +656,12 @@ def test_jax_checkpoint_loads_through_the_converter(tmp_path):
 
 # -- the launcher ------------------------------------------------------------
 
-def test_launch_train_smoke_on_cpu(capsys, arch="stablelm-12b"):
+@pytest.mark.parametrize("arch", ["stablelm-12b", "qwen3-moe-30b-a3b",
+                                  "mixtral-8x22b", "internvl2-2b",
+                                  "whisper-large-v3"])
+def test_launch_train_smoke_on_cpu(capsys, arch):
+    """The CLI trains each family's smoke config (the vlm's and audio's
+    batches with their embeddings) for 3 steps on the CPU."""
     res = ttrain.main(["--arch", arch, "--smoke", "--steps", "3",
                        "--batch", "2", "--seq-len", "16", "--log-every", "1",
                        "--device", "cpu"])
