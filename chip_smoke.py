@@ -42,8 +42,11 @@ two main paths through the entry points a user calls:
   plain path (no kernel: the flash kernel has no backward, and its
   wrapper refuses an input that requires grad); the state is saved
   after step 2 (``repro_torch.checkpoint``), restored, and steps 3-4
-  replayed bit for bit; then the smoke config's steps on the card
-  against the CPU's;
+  replayed bit for bit; the same step's dry-run on the meta device
+  (``repro_torch.launch.dryrun``, the local mesh) must count the train
+  state's bytes exactly, its peak and compute time printed beside the
+  measured ones; then the smoke config's steps on the card against the
+  CPU's;
 * ssm and hybrid training: mamba2-1.3b at its published widths and
   full depth (48 layers, 4 x 2048 tokens; the intra-chunk term by its
   plain version, no kernel) and recurrentgemma-9b at its published
@@ -97,6 +100,9 @@ import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, os.path.join(ROOT, "src"))
+from repro_torch.launch import h100  # noqa: E402  (the card's constants)
+
 PAPER_JOBS = 2 ** 16
 PAPER_NODES = 84
 ENGINE_JOBS = 4096
@@ -104,12 +110,13 @@ TIMING_REPS = 30
 # spin cycles that keep the card busy while the host queues the timed
 # calls (about 0.1 s on an H100), so no host latency falls inside them
 QUEUE_SPIN_CYCLES = 200_000_000
-# H100 SXM (NVIDIA data sheet): HBM3 bandwidth, float32 rate outside
-# the tensor cores, dense bf16 tensor-core rate
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_F32_PER_S = 67e12
-PEAK_TF32_PER_S = 495e12
-PEAK_BF16_PER_S = 989e12
+# H100 SXM (NVIDIA data sheet, ``repro_torch/launch/h100.py``): HBM3
+# bandwidth, float32 rate outside the tensor cores, dense TF32 and bf16
+# tensor-core rates
+PEAK_BYTES_PER_S = h100.HBM_BYTES_PER_S
+PEAK_F32_PER_S = h100.PEAK_F32_FLOPS
+PEAK_TF32_PER_S = h100.PEAK_TF32_FLOPS
+PEAK_BF16_PER_S = h100.PEAK_BF16_FLOPS
 KERNEL_SHAPES = [(b, j, m) for b in (1, 4) for j in (5, 1000, 65536)
                  for m in (8, 84)]
 # more tiles than one resident wave of the cooperative grid holds, so
@@ -1497,17 +1504,13 @@ def phase_sweep_b1(torch, np, runs):
 
 
 def flash_flops(shape):
-    """The matrix-product FLOPs of one flash-attention call: the (query,
-    key) pairs its mask attends, 2*hd for q.k and 2*hd for p.v per pair
-    and head (the counted work behind a TFLOP/s figure)."""
+    """The matrix-product FLOPs of one flash-attention call
+    (``repro_torch.kernels.flash_attention.flops``: the (query, key)
+    pairs its mask attends, 2*hd for q.k and 2*hd for p.v per pair and
+    head; the counted work behind a TFLOP/s figure)."""
+    from repro_torch.kernels import flash_attention as fa
     B, Sq, Skv, H, KV, hd, causal, window, _ = shape
-    pairs = 0
-    for i in range(Sq):
-        pos = Skv - Sq + i
-        hi = min(Skv - 1, pos) if causal else Skv - 1
-        lo = max(0, pos - window + 1) if window > 0 else 0
-        pairs += max(0, hi - lo + 1)
-    return 4 * B * H * hd * pairs
+    return fa.flops(B, Sq, Skv, H, hd, causal=causal, window=window)
 
 
 def flash_bound_ms(shape, itemsize):
@@ -1790,12 +1793,11 @@ def ssd_bound_ms(shape, args, out_itemsize, peak, passes=1):
     (per (b, h) and query i of a chunk, i + 1 keys, each a score of N
     multiply-adds and a weighted sum of P), taken ``passes`` times (3
     for the 3xTF32 route in f32), over ``peak``, against the inputs'
-    distinct bytes read once and y written once over HBM bandwidth."""
+    distinct bytes read once and y written once over HBM bandwidth.
+    The count is ``repro_torch.kernels.ssd_chunk.flops``."""
+    from repro_torch.kernels import ssd_chunk as sc
     B, L, H, P, N, _ = shape
-    Q = min(256, L)
-    pairs = sum(q * (q + 1) // 2 for q in
-                [Q] * (L // Q) + ([L % Q] if L % Q else []))
-    flops = 2 * (N + P) * pairs * B * H * passes
+    flops = sc.flops(B, L, H, P, N) * passes
     nbytes = sum(unique_bytes(t) for t in args) + B * L * H * P * out_itemsize
     t_ops = flops / peak * 1e3
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
@@ -3062,7 +3064,7 @@ TRAIN_STEPS, TRAIN_SAVE_AFTER, TRAIN_LR = 4, 2, 3e-5
 TRAIN_CARD_VS_CPU_TOL = 1e-4
 # the H100's dense bf16 peak (NVIDIA's data sheet, SXM, 700 W) and the
 # storage rate estimate_grace_period assumes
-PEAK_BF16_FLOPS = 989e12
+PEAK_BF16_FLOPS = h100.PEAK_BF16_FLOPS
 ASSUMED_STORAGE_BPS = 2e9
 
 def kernel_refuses_grad(torch):
@@ -3083,15 +3085,22 @@ def kernel_refuses_grad(torch):
 def phase_train(torch):
     """The training main path: stablelm-12b at full width, 2 layers,
     through ``launch.train.train`` (attention's plain path, no kernel),
-    with a checkpoint after step 2 restored and steps 3-4 replayed."""
+    with a checkpoint after step 2 restored and steps 3-4 replayed. The
+    dry-run (``launch.dryrun.dry_run`` on the meta device, the local
+    mesh) of the same step is held against the card: its train-state
+    argument bytes must equal the real state's bytes; its ``temp_gb``,
+    ``peak_gb`` and roofline ``compute_s`` are printed beside the
+    measured peak and s/step as readings."""
     import shutil
     from repro_torch import models, trainer
     from repro_torch.checkpoint import (estimate_grace_period, load_pytree,
                                         save_pytree, state_bytes)
-    from repro_torch.configs import get_config
+    from repro_torch.configs import InputShape, get_config
     from repro_torch.data import make_eval_batch
     from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun
     from repro_torch.launch import train as launch_train
+    from repro_torch.launch.mesh import make_local_mesh
     cfg = get_config(TRAIN_ARCH).replace(n_layers=TRAIN_LAYERS)
     check(cfg.dtype == "bfloat16" and cfg.remat == "full",
           f"unexpected training config {cfg.dtype}, remat {cfg.remat}")
@@ -3150,6 +3159,13 @@ def phase_train(torch):
     resume_equal = replayed == losses[TRAIN_SAVE_AFTER:] and params_equal
     del state, res, replay, final
     free_cuda(torch)
+    # after the steps: their remat has imported torch._dynamo, which the
+    # dry-run's dispatch mode would otherwise import on its first use
+    t0 = time.perf_counter()
+    dry = dryrun.dry_run(cfg, InputShape("train_smoke", TRAIN_SEQ,
+                                         TRAIN_BATCH, "train"),
+                         make_local_mesh())
+    dry_s = time.perf_counter() - t0
     n_params = models.count_params(cfg)
     counted = active_matmul_params(cfg)
     tokens = TRAIN_BATCH * TRAIN_SEQ
@@ -3174,7 +3190,20 @@ def phase_train(torch):
           "assumed_gbps": ASSUMED_STORAGE_BPS / 1e9,
           "grace_period_min": grace, "restored_step": restored_step,
           "resume_bit_equal": resume_equal, "launches": launches,
-          "kernel_refuses_grad": refuses})
+          "kernel_refuses_grad": refuses,
+          "dryrun": {"seconds": dry_s, "mesh": dry["mesh"],
+                     "strategy": dry["strategy"],
+                     "state_bytes": dry["memory"]["argument_bytes"]["state"],
+                     "temp_gb": dry["memory"]["temp_gb"],
+                     "peak_gb": dry["memory"]["peak_gb"],
+                     "temp_gb_upper_bound":
+                         dry["memory"]["temp_gb_upper_bound"],
+                     "compute_s": dry["roofline"]["compute_s"],
+                     "counted_flops": dry["counted_flops_per_device"]}})
+    check(dry["memory"]["argument_bytes"]["state"] == sbytes,
+          f"the dry-run's train-state bytes "
+          f"{dry['memory']['argument_bytes']['state']} differ from the "
+          f"state's {sbytes}")
     check(all(math.isfinite(x) for x in losses),
           f"non-finite training loss in {losses}")
     check(eval_after < eval_before, f"the eval loss did not drop: "
@@ -3284,20 +3313,14 @@ def train_launches(cfg, evals):
 
 
 def active_matmul_params(cfg):
-    """The parameters a token's matrix products use, by the JAX
-    package's roofline rule (``_matmul_params``, copied): all but the
-    embedding (a gather), less the experts a token is not routed to,
-    plus the embedding again where it is tied (the unembedding's
-    product). Counted TFLOP/s are 6 x this x tokens a step."""
-    from repro_torch import models
-    active = models.count_params(cfg) - cfg.vocab * cfg.d_model
-    if cfg.family == "moe":
-        m = cfg.moe
-        per_ffn = cfg.d_model * m.d_expert * (3 if cfg.gated_mlp else 2)
-        active -= cfg.n_layers * per_ffn * (m.num_experts - m.top_k)
-    if cfg.tie_embeddings:
-        active += cfg.vocab * cfg.d_model
-    return active
+    """The parameters a token's matrix products use, by the roofline's
+    rule (``repro_torch.launch.roofline._matmul_params``, the JAX
+    package's): all but the embedding (a gather), less the experts a
+    token is not routed to, plus the embedding again where it is tied
+    (the unembedding's product). Counted TFLOP/s are 6 x this x tokens a
+    step."""
+    from repro_torch.launch import roofline
+    return int(roofline._matmul_params(cfg)[0])
 
 
 def moe_train_routes(torch, cfg, routes, seq):
@@ -3748,7 +3771,6 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
-    sys.path.insert(0, os.path.join(ROOT, "src"))
     import numpy as np
     t0 = time.perf_counter()
     kernels = []

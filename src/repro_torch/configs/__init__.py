@@ -2,6 +2,8 @@
 
 ``get_config``/``get_smoke_config``/``list_archs`` cover every arch of
 the JAX package: the dense, moe, ssm, hybrid, audio and vlm families.
+``SHAPE_SKIPS`` names the (arch, shape) pairs the dry-run skips by
+design, as the JAX package's does.
 """
 from __future__ import annotations
 
@@ -34,6 +36,15 @@ _ARCH_MODULES: Dict[str, str] = {
 }
 
 
+# (arch, shape) pairs that are skipped by design (the JAX package's
+# DESIGN.md §9)
+SHAPE_SKIPS = {
+    ("whisper-large-v3", "long_500k"):
+        "enc-dec ASR; decoder capped at 448 tokens — 524k-token decode "
+        "context is meaningless for the family",
+}
+
+
 def list_archs() -> List[str]:
     return sorted(_ARCH_MODULES)
 
@@ -53,3 +64,7 @@ def get_config(arch: str) -> ModelConfig:
 def get_smoke_config(arch: str) -> ModelConfig:
     """Reduced same-family variant for CPU smoke tests."""
     return _module(arch).smoke_config()
+
+
+def shape_is_supported(arch: str, shape: str) -> bool:
+    return (arch, shape) not in SHAPE_SKIPS

@@ -3,8 +3,9 @@ scheduling defaults (single source for the port).
 
 The port's copy of ``repro.configs.base``: the same fields, defaults
 and derived properties, so a config of either package describes the
-same model. ``ParallelismPlan`` is not copied: the port runs on one
-card and has no sharding plans yet (ROADMAP, dry-run item).
+same model. ``ParallelismPlan`` is not copied: nothing in either
+package builds or reads it; the dry-run's resolved plans are
+``sharding.plans.Plan``.
 """
 from __future__ import annotations
 
@@ -133,3 +134,4 @@ INPUT_SHAPES = {
     "decode_32k":  InputShape("decode_32k",  32_768,  128, "decode"),
     "long_500k":   InputShape("long_500k",   524_288, 1,   "decode"),
 }
+

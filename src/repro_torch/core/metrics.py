@@ -3,7 +3,7 @@ helpers of the reference engine (host numpy; the port's copy of the
 JAX package's ``core/metrics.py``)."""
 from __future__ import annotations
 
-from typing import Dict, Sequence
+from typing import Dict, Iterable, Sequence
 
 import numpy as np
 
@@ -73,6 +73,23 @@ def slowdown_table(res: SimResult) -> Dict[str, Dict[str, float]]:
 def resched_table(res: SimResult) -> Dict[str, float]:
     """Table 2 row: re-scheduling interval percentiles [min]."""
     return percentiles(res.resched_intervals, ps=(50, 75, 95, 99))
+
+
+def merge_results(results: Iterable[SimResult]) -> Dict[str, np.ndarray]:
+    """Pool per-job stats across workloads (the paper pools 8
+    workloads)."""
+    sd, te, pc, iv = [], [], [], []
+    for r in results:
+        sd.append(r.slowdown)
+        te.append(r.is_te)
+        pc.append(r.preempt_count)
+        iv.append(r.resched_intervals)
+    return {
+        "slowdown": np.concatenate(sd),
+        "is_te": np.concatenate(te),
+        "preempt_count": np.concatenate(pc),
+        "intervals": np.concatenate(iv) if iv else np.asarray([]),
+    }
 
 
 def pooled_tables(pool: Dict[str, np.ndarray]) -> Dict:

@@ -36,6 +36,9 @@ KERNEL_FLAGS: Dict[str, Tuple[str, ...]] = {
 # Kernel launches by kernel name, raised by each CUDA wrapper after a
 # successful launch and nowhere else (``ops.LAUNCHES`` is this dict).
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
+# FLOPs of the kernel calls made on meta tensors (the dry-run's shape
+# route: a meta output, no arithmetic, no launch), by kernel name
+META_FLOPS: Dict[str, int] = {name: 0 for name in KERNELS}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 

@@ -15,12 +15,14 @@ probabilities are rounded to v's type before the PV product.
 ``csrc/flash_attention.cu`` runs the online softmax of the Pallas
 kernel: bfloat16 on the tensor cores (``wgmma``, K/V by TMA), float32
 on the CUDA cores; :func:`flash_attention_cuda` launches the one for
-q's type.
+q's type. On meta tensors :func:`flash_attention_meta` gives the
+kernel's output shape and type and counts its :func:`flops`.
 """
 from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import build
@@ -41,6 +43,30 @@ def _attention_mask(sq: int, skv: int, *, causal: bool, window: int,
     if window > 0:
         mask &= kpos > qpos - window
     return mask
+
+
+def flops(B: int, Sq: int, Skv: int, H: int, hd: int, *, causal: bool,
+          window: int) -> int:
+    """The matrix-product FLOPs of one call: the (query, key) pairs its
+    mask attends, 2·hd for q·k and 2·hd for p·v per pair and head
+    (``chip_smoke.flash_flops`` calls it)."""
+    pos = np.arange(Sq, dtype=np.int64) + (Skv - Sq)
+    hi = np.minimum(Skv - 1, pos) if causal else np.full(Sq, Skv - 1)
+    lo = np.maximum(0, pos - window + 1) if window > 0 else 0
+    pairs = int(np.maximum(0, hi - lo + 1).sum())
+    return 4 * B * H * hd * pairs
+
+
+def flash_attention_meta(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         *, causal: bool = True, window: int = 0,
+                         softcap: float = 0.0) -> torch.Tensor:
+    """The kernel's output on the meta device: shape and type only, no
+    arithmetic and no launch; adds the call's :func:`flops` to
+    ``build.META_FLOPS``."""
+    B, Sq, H, hd = q.shape
+    build.META_FLOPS["flash_attention"] += flops(
+        B, Sq, k.shape[1], H, hd, causal=causal, window=window)
+    return torch.empty_like(q)
 
 
 def flash_attention_torch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -33,7 +33,9 @@ kernel in reverse mode (:func:`lru_scan_reverse_cuda`, which reads
 a_{t+1} where the forward reads a_t, so no shifted or flipped copy is
 made), then db = lam, da_t = lam_t h_{t-1} and dh0 = a_0 lam_0 in two
 elementwise products. It takes float32 a and b, what the hybrid's
-``RecMixer`` passes.
+``RecMixer`` passes. On meta tensors (the dry-run) the same function
+runs :func:`lru_scan_meta` in both launches' places: their output
+shape and type, and their operations counted in ``build.META_FLOPS``.
 """
 from __future__ import annotations
 
@@ -172,9 +174,20 @@ def lru_scan_reverse_cuda(a: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     return lam
 
 
+def lru_scan_meta(a: torch.Tensor, b: torch.Tensor,
+                  h0: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The kernel's output on the meta device, forward or reverse
+    (``lru_scan_meta(a, g)``): shape and type only, no arithmetic and no
+    launch; adds the launch's 2·B·L·R operations (a multiply and an add
+    a step) to ``build.META_FLOPS``."""
+    build.META_FLOPS["lru_scan"] += 2 * a.numel()
+    return torch.empty_like(a)
+
+
 class LruScan(torch.autograd.Function):
     """``lru_scan_cuda`` with a backward on the card (float32 a, b and
-    h0). Forward: one launch, saving a, h and h0. Backward: one reverse
+    h0; on meta tensors :func:`lru_scan_meta` stands for both launches).
+    Forward: one launch, saving a, h and h0. Backward: one reverse
     launch for lam, then da_t = lam_t h_{t-1} (h_{-1} = h0, or 0),
     db = lam, dh0 = a_0 lam_0. Each is the multiply or add autograd
     through :func:`lru_scan_torch` does, so the gradients agree with it
@@ -186,14 +199,16 @@ class LruScan(torch.autograd.Function):
             if t is not None and t.dtype != torch.float32:
                 raise ValueError(f"LruScan differentiates float32 inputs; "
                                  f"{name} is {t.dtype}")
-        h = lru_scan_cuda(a, b, h0)
+        h = (lru_scan_meta if a.device.type == "meta"
+             else lru_scan_cuda)(a, b, h0)
         ctx.save_for_backward(a, h, h0)
         return h
 
     @staticmethod
     def backward(ctx, g):
         a, h, h0 = ctx.saved_tensors
-        lam = lru_scan_reverse_cuda(a, g.contiguous())
+        lam = (lru_scan_meta if a.device.type == "meta"
+               else lru_scan_reverse_cuda)(a, g.contiguous())
         da = db = dh0 = None
         if ctx.needs_input_grad[0]:
             da = torch.empty_like(lam)

@@ -2,7 +2,12 @@
 
 Dispatch is by device: a CUDA tensor goes to the hand-written kernel,
 a CPU tensor to its plain PyTorch version. There is no fallback from
-the kernel to the plain version. The flash and SSD kernels have no
+the kernel to the plain version. A meta tensor (the dry-run,
+``launch/dryrun.py``) takes the kernel's route without the kernel:
+``flash_attention``, ``ssd_chunk`` and ``lru_scan`` return a meta
+tensor of the kernel's output shape and type, do no arithmetic, count
+no launch, and add the call's FLOPs to ``META_FLOPS``
+(``schedule_step`` has no meta route). The flash and SSD kernels have no
 backward: on a CUDA input that requires grad, with grad mode on, their
 wrappers raise (training takes their plain versions by route, as the
 JAX package trains through jnp). The LRU kernel has one: such an input
@@ -28,6 +33,7 @@ from repro_torch.kernels import schedule_step as _ss
 from repro_torch.kernels import ssd_chunk as _sc
 
 LAUNCHES = build.LAUNCHES
+META_FLOPS = build.META_FLOPS
 KERNEL_EVENTS = None
 # Private test hook: True sends CUDA tensors of ``schedule_step``,
 # ``ssd_chunk`` and ``lru_scan`` to the plain version too, and
@@ -104,12 +110,13 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     if not causal and (Sq % _JAX_BLOCK or Skv % _JAX_BLOCK):
         raise ValueError("non-causal attention requires block-aligned "
                          "Sq and Skv (padded keys would be attended)")
-    if q.device.type != "cuda":
+    if q.device.type not in ("cuda", "meta"):
         return _fa.flash_attention_torch(q, k, v, causal=causal,
                                          window=window, softcap=softcap)
     _refuse_grad("flash_attention", q, k, v)
-    return _fa.flash_attention_cuda(q, k, v, causal=causal, window=window,
-                                    softcap=softcap)
+    fn = _fa.flash_attention_cuda if q.device.type == "cuda" \
+        else _fa.flash_attention_meta
+    return fn(q, k, v, causal=causal, window=window, softcap=softcap)
 
 
 def ssd_chunk(xdt, loga, Bm, Cm):
@@ -117,10 +124,12 @@ def ssd_chunk(xdt, loga, Bm, Cm):
     Q = min(256, L): xdt (B, L, H, P), loga (B, L, H), Bm/Cm (B, L, H,
     N) -> y (B, L, H, P); see ``kernels/ssd_chunk.py``. Unlike the JAX
     wrapper, L need not be a multiple of Q (the last chunk is shorter)."""
-    if xdt.device.type != "cuda" or _FORCE_PLAIN:
+    if xdt.device.type not in ("cuda", "meta") or _FORCE_PLAIN:
         return _sc.ssd_chunk_torch(xdt, loga, Bm, Cm)
     _refuse_grad("ssd_chunk", xdt, loga, Bm, Cm)
-    return _sc.ssd_chunk_cuda(xdt, loga, Bm, Cm)
+    fn = _sc.ssd_chunk_cuda if xdt.device.type == "cuda" \
+        else _sc.ssd_chunk_meta
+    return fn(xdt, loga, Bm, Cm)
 
 
 def lru_scan(a, b, h0=None):
@@ -132,9 +141,10 @@ def lru_scan(a, b, h0=None):
     ``lru_scan.LruScan``, the kernel with its backward, which takes
     float32 inputs only; the CPU's plain version is differentiated by
     autograd."""
-    if a.device.type != "cuda" or _FORCE_PLAIN:
+    if a.device.type not in ("cuda", "meta") or _FORCE_PLAIN:
         return _ls.lru_scan_torch(a, b, h0)
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in (a, b, h0)):
         return _ls.LruScan.apply(a, b, h0)
-    return _ls.lru_scan_cuda(a, b, h0)
+    fn = _ls.lru_scan_cuda if a.device.type == "cuda" else _ls.lru_scan_meta
+    return fn(a, b, h0)

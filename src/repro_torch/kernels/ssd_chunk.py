@@ -17,7 +17,9 @@ and the CUDA kernel masks it itself.
 computes, chunk by chunk. The CUDA kernel ``csrc/ssd_chunk.cu`` reads
 its inputs through strides, so Bm/Cm broadcast from one group with
 ``expand`` (stride 0 on the head axis) are never copied;
-:func:`ssd_chunk_cuda` launches it.
+:func:`ssd_chunk_cuda` launches it. On meta tensors
+:func:`ssd_chunk_meta` gives its output shape and type and counts its
+:func:`flops`.
 """
 from __future__ import annotations
 
@@ -30,6 +32,26 @@ from repro_torch.kernels import build
 CHUNK = 256          # the Pallas kernel's Q = min(256, L)
 _MAX_DIM = 256       # P and N the kernel takes
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def flops(B: int, L: int, H: int, P: int, N: int) -> int:
+    """The operations of one call (one pass; ``chip_smoke.ssd_bound_ms``
+    calls it): per (b, h) and query i of a chunk, i + 1 keys, each a
+    score of N multiply-adds and a weighted sum of P."""
+    Q = min(CHUNK, L)
+    pairs = sum(q * (q + 1) // 2 for q in
+                [Q] * (L // Q) + ([L % Q] if L % Q else []))
+    return 2 * (N + P) * pairs * B * H
+
+
+def ssd_chunk_meta(xdt: torch.Tensor, loga: torch.Tensor, Bm: torch.Tensor,
+                   Cm: torch.Tensor) -> torch.Tensor:
+    """The kernel's output on the meta device: shape and type only, no
+    arithmetic and no launch; adds the call's :func:`flops` to
+    ``build.META_FLOPS``."""
+    B, L, H, P = xdt.shape
+    build.META_FLOPS["ssd_chunk"] += flops(B, L, H, P, Bm.shape[-1])
+    return torch.empty_like(xdt)
 
 
 def _chunks_torch(x, loga, Bm, Cm):

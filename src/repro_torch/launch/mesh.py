@@ -1,5 +1,12 @@
-"""The sweep's device choice (the port's side of the JAX package's
-``launch/mesh.py::mesh_for_sweep``).
+"""Meshes for the dry-run, and the sweep's device choice (the port's
+side of the JAX package's ``launch/mesh.py``).
+
+A :class:`Mesh` here is a plain description, axis names and sizes,
+with no devices: PyTorch has no SPMD compiler that lowers a model onto
+it, so the dry-run (``launch/dryrun.py``) resolves each plan on it and
+accounts one device's share (``sharding/plans.py``).
+:func:`make_production_mesh` keeps the JAX package's shapes, so each
+plan can be held against JAX's on the same mesh.
 
 The JAX sweep fabric shards its trial table over a 1-D device mesh. The
 port shards it over processes, one per device
@@ -13,11 +20,48 @@ from __future__ import annotations
 
 import os
 import warnings
-from typing import List, Optional
+from dataclasses import dataclass
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
 from repro_torch import device as _device
+
+
+@dataclass(frozen=True)
+class Mesh:
+    """Axis names and sizes of a device mesh (JAX's ``Mesh`` without its
+    devices): ``shape`` maps each name to its size, in order."""
+    axis_names: Tuple[str, ...]
+    sizes: Tuple[int, ...]
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        return dict(zip(self.axis_names, self.sizes))
+
+    @property
+    def size(self) -> int:
+        n = 1
+        for s in self.sizes:
+            n *= s
+        return n
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
+    """(16, 16) ("data", "model") for one 256-device pod; (2, 16, 16)
+    with a leading "pod" axis for the 512-device two-pod deployment."""
+    if multi_pod:
+        return Mesh(("pod", "data", "model"), (2, 16, 16))
+    return Mesh(("data", "model"), (16, 16))
+
+
+def make_local_mesh(device=None) -> Mesh:
+    """(n_devices, 1) ("data", "model") over the devices of ``device``'s
+    kind (default: the CUDA devices; raises without one): the CUDA
+    devices present, or one host for ``device="cpu"``."""
+    dev = _device.resolve(device)
+    n = torch.cuda.device_count() if dev.type == "cuda" else 1
+    return Mesh(("data", "model"), (n, 1))
 
 
 def _available(device) -> int:

@@ -3,11 +3,12 @@ path, and KV-cache utilities (counterpart of ``repro.models.attention``).
 
 On a CUDA tensor with more than one query and the causal hint,
 :func:`attend` always runs the hand-written flash kernel through
-``kernels.ops.flash_attention``; there is no switch (the JAX package
-selects its Pallas kernel with ``REPRO_ATTN_IMPL=pallas``). Everything
-else (CPU tensors, decode with one query, calls without the hint) takes
-the plain path, which scans over query chunks so peak memory is
-O(q_chunk * Skv).
+``kernels.ops.flash_attention`` (a meta tensor, the dry-run's, takes
+the same route to the kernel's meta output); there is no switch (the
+JAX package selects its Pallas kernel with ``REPRO_ATTN_IMPL=pallas``).
+Everything else (CPU tensors, decode with one query, calls without the
+hint) takes the plain path, which scans over query chunks so peak
+memory is O(q_chunk * Skv).
 """
 from __future__ import annotations
 
@@ -48,16 +49,17 @@ def attend(
 ) -> torch.Tensor:
     """Grouped-query attention. Returns (B, Sq, H, hd).
 
-    With CUDA tensors, Sq > 1 and the hints (``causal``/``window``
-    describing ``mask``) this is the flash kernel. Otherwise the plain
+    With CUDA (or meta) tensors, Sq > 1 and the hints
+    (``causal``/``window`` describing ``mask``) this is the flash kernel
+    (its meta output on meta tensors). Otherwise the plain
     path runs over query chunks of ``q_chunk`` rows; unlike the JAX
     scan, the last chunk may be shorter, so a length that is not a
     multiple of ``q_chunk`` is chunked too (each row's softmax is its
     own, so chunking changes no value)."""
     B, Sq, H, hd = q.shape
     KV = k.shape[2]
-    if (q.device.type == "cuda" and Sq > 1 and causal is not None
-            and not kops._FORCE_PLAIN):
+    if (q.device.type in ("cuda", "meta") and Sq > 1
+            and causal is not None and not kops._FORCE_PLAIN):
         return kops.flash_attention(q, k, v, causal=causal, window=window,
                                     softcap=softcap_val)
     qg = q.reshape(B, Sq, KV, H // KV, hd)
@@ -94,6 +96,32 @@ def init_cache(n_layers: int, batch: int, cache_len: int, n_kv: int,
         "kv_pos": torch.full((cache_len,), -1, dtype=torch.int32,
                              device=device),
         "next_pos": 0,
+    }
+
+
+def abstract_cache(n_layers: int, batch: int, cache_len: int, n_kv: int,
+                   head_dim: int, dtype: torch.dtype) -> dict:
+    """:func:`init_cache`'s leaves as meta tensors (the dry-run's
+    stand-in, no storage), ``next_pos`` a 0-d int32 as in the JAX
+    package."""
+    return abstract_pos(init_cache(n_layers, batch, cache_len, n_kv,
+                                   head_dim, dtype, device="meta"))
+
+
+def abstract_pos(cache: dict) -> dict:
+    """``cache`` (on the meta device) with its host ``next_pos`` made a
+    0-d int32 meta tensor, the JAX package's leaf; returns it."""
+    cache["next_pos"] = torch.empty((), dtype=torch.int32, device="meta")
+    return cache
+
+
+def cache_logical_specs() -> dict:
+    """Logical axes of the cache leaves (see ``sharding/plans.py``)."""
+    return {
+        "k": ("layers", "cache_batch", "cache_seq", "kv", "head_dim"),
+        "v": ("layers", "cache_batch", "cache_seq", "kv", "head_dim"),
+        "kv_pos": (None,),
+        "next_pos": (),
     }
 
 

@@ -9,8 +9,9 @@ time, in slices of ``draws.SLICE`` elements, so no whole tree is ever
 built in float32. Its draws are counter-based (``repro_torch.draws``):
 element i of leaf ``leaf`` of a model seeded ``seed`` is a function of
 (seed, leaf, i), so a model initialised on the card equals the one
-initialised on the CPU bit for bit. The abstract (dry-run) trees and
-logical sharding specs are not ported (ROADMAP, dry-run item).
+initialised on the CPU bit for bit. From the same definitions come the
+dry-run's :func:`abstract` trees (meta tensors: shapes and types, no
+storage) and the :func:`logical_specs` the sharding plans read.
 """
 from __future__ import annotations
 
@@ -62,6 +63,26 @@ def _leaves(defs: Tree):
     else:
         for v in defs.values():
             yield from _leaves(v)
+
+
+def _map(fn, defs: Tree) -> Tree:
+    """``defs``' nested dicts with ``fn`` applied to each ParamDef."""
+    if isinstance(defs, ParamDef):
+        return fn(defs)
+    return {k: _map(fn, v) for k, v in defs.items()}
+
+
+def abstract(defs: Tree, dtype: str) -> Tree:
+    """The parameter tree as meta tensors (the dry-run's stand-in: the
+    shapes and types of ``defs``, stacked layers included, no
+    storage)."""
+    return _map(lambda d: torch.empty(d.shape, dtype=torch_dtype(
+        d.dtype or dtype), device="meta"), defs)
+
+
+def logical_specs(defs: Tree) -> Tree:
+    """The tree of logical-axes tuples matching the parameter tree."""
+    return _map(lambda d: d.axes, defs)
 
 
 def count_params(defs: Tree) -> int:

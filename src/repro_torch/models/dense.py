@@ -10,7 +10,7 @@ The functions take the module where the JAX ones take the parameter
 tree.
 
 Not ported: the sharding ``constrain`` calls (they do nothing on one
-card). The parameters are made without gradients and serving runs
+card; the dry-run resolves their layouts in ``sharding.constraints``). The parameters are made without gradients and serving runs
 under ``torch.no_grad``; ``trainer.init_train_state`` turns gradients
 on. Training (:func:`loss_fn`) takes a route of its own through
 :func:`hidden` (``train=True``): ``attend``'s plain path, as the JAX
@@ -248,6 +248,9 @@ def is_stacked(d: ParamDef) -> bool:
     return bool(d.axes) and d.axes[0] == "layers"
 
 
+LM = DenseLM
+
+
 # ---------------------------------------------------------------------------
 # Public model API
 # ---------------------------------------------------------------------------
@@ -371,19 +374,22 @@ def prefill_embedded(cfg: ModelConfig, model: DenseLM, x: torch.Tensor,
 
 
 def init_decode_cache(cfg: ModelConfig, batch: int, context_len: int, *,
-                      device=None) -> dict:
+                      device=None, abstract: bool = False) -> dict:
     """Cache for serve_step. Ring buffer of the window size when the arch
     has sliding-window attention; else full ``context_len``.
+    ``abstract=True`` gives the dry-run's meta leaves
+    (``attention.abstract_cache``).
 
     ``cfg.decode_window`` (the long-context variant) is applied by the
     launcher via ``cfg.replace(window=cfg.decode_window)``; this module
     honours ``cfg.window``."""
     w = min(cfg.window, context_len) if cfg.window > 0 else 0
     cache_len = w if w > 0 else context_len
-    return attention.init_cache(cfg.n_layers, batch, cache_len,
-                                cfg.n_kv_heads, cfg.head_dim,
-                                common.torch_dtype(cfg.dtype),
-                                device=_device.resolve(device))
+    args = (cfg.n_layers, batch, cache_len, cfg.n_kv_heads, cfg.head_dim,
+            common.torch_dtype(cfg.dtype))
+    if abstract:
+        return attention.abstract_cache(*args)
+    return attention.init_cache(*args, device=_device.resolve(device))
 
 
 @torch.no_grad()

@@ -23,7 +23,8 @@ through its jnp ``attend``; the RG-LRU by ``ops.lru_scan``, which on
 the card is the kernel with its backward (``lru_scan.LruScan``); and
 each (rec, rec, attn) group under ``cfg.remat``, the remainder layers
 without, as the JAX package remats its group scan. Not ported: the
-sharding constraints.
+sharding constraints (the dry-run resolves their layouts in
+``sharding.constraints``).
 """
 from __future__ import annotations
 
@@ -209,6 +210,9 @@ def init(cfg: ModelConfig, seed: int = 0, *, device=None) -> HybridLM:
                              seed, dev)
 
 
+LM = HybridLM
+
+
 # ---------------------------------------------------------------------------
 # Model API
 # ---------------------------------------------------------------------------
@@ -284,21 +288,33 @@ def loss_fn(cfg: ModelConfig, model: HybridLM, batch: dict) -> torch.Tensor:
 
 
 def init_decode_cache(cfg: ModelConfig, batch: int, context_len: int, *,
-                      device=None) -> dict:
+                      device=None, abstract: bool = False) -> dict:
     """Recurrent states and a ring KV cache of min(local_window,
-    context_len) slots, in the model's type."""
+    context_len) slots, in the model's type; ``abstract=True`` gives the
+    dry-run's meta leaves."""
     _, _, n_rec, n_attn = layer_layout(cfg)
     R = cfg.recurrent.lru_width or cfg.d_model
     W = cfg.recurrent.d_conv
     win = min(cfg.recurrent.local_window, context_len)
     dt = common.torch_dtype(cfg.dtype)
-    dev = _device.resolve(device)
+    dev = torch.device("meta") if abstract else _device.resolve(device)
     cache = attention.init_cache(n_attn, batch, win, cfg.n_kv_heads,
                                  cfg.head_dim, dt, device=dev)
     cache["conv"] = torch.zeros((n_rec, batch, W - 1, R), dtype=dt,
                                 device=dev)
     cache["h"] = torch.zeros((n_rec, batch, R), dtype=dt, device=dev)
-    return cache
+    return attention.abstract_pos(cache) if abstract else cache
+
+
+def cache_logical_specs() -> dict:
+    return {
+        "conv": ("layers", "cache_batch", None, "mlp"),
+        "h": ("layers", "cache_batch", "mlp"),
+        "k": ("layers", "cache_batch", "cache_seq", "kv", "head_dim"),
+        "v": ("layers", "cache_batch", "cache_seq", "kv", "head_dim"),
+        "kv_pos": (None,),
+        "next_pos": (),
+    }
 
 
 @torch.no_grad()

@@ -218,6 +218,9 @@ class MoELM(dense.DenseLM):
     Layer = MoELayer
 
 
+LM = MoELM
+
+
 @torch.no_grad()
 def init(cfg: ModelConfig, seed: int = 0, *, device=None) -> MoELM:
     """Random parameters with the JAX package's initializers, drawn leaf

@@ -16,8 +16,7 @@ scans. Training (:func:`loss_fn`) takes a route of its own through
 :func:`hidden` (``train=True``): the intra-chunk term by the plain
 ``ssd_chunk_torch``, which autograd differentiates (the kernel has no
 backward; the JAX package trains through its jnp ``y_diag``), and each
-layer under ``cfg.remat``, as the JAX package remats each layer. Not
-ported: the sharding specs of the cache.
+layer under ``cfg.remat``, as the JAX package remats each layer.
 """
 from __future__ import annotations
 
@@ -32,7 +31,7 @@ from repro_torch import device as _device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ssd_chunk as _ssd_chunk
-from repro_torch.models import common, dense
+from repro_torch.models import attention, common, dense
 from repro_torch.models.common import ParamDef
 
 
@@ -309,6 +308,9 @@ def init(cfg: ModelConfig, seed: int = 0, *, device=None) -> MambaLM:
                              seed, dev)
 
 
+LM = MambaLM
+
+
 # ---------------------------------------------------------------------------
 # Public model API
 # ---------------------------------------------------------------------------
@@ -347,22 +349,34 @@ def loss_fn(cfg: ModelConfig, model: MambaLM, batch: dict) -> torch.Tensor:
 
 
 def init_decode_cache(cfg: ModelConfig, batch: int, context_len: int, *,
-                      device=None) -> dict:
+                      device=None, abstract: bool = False) -> dict:
     """The constant-size recurrent state, independent of
-    ``context_len``, in the model's type."""
+    ``context_len``, in the model's type; ``abstract=True`` gives the
+    dry-run's meta leaves."""
     d_inner, H, P, G, N = _dims(cfg)
     W, L = cfg.ssm.d_conv, cfg.n_layers
     dt = common.torch_dtype(cfg.dtype)
-    dev = _device.resolve(device)
+    dev = torch.device("meta") if abstract else _device.resolve(device)
 
     def zeros(*shape):
         return torch.zeros(shape, dtype=dt, device=dev)
 
-    return {"conv": {"x": zeros(L, batch, W - 1, d_inner),
-                     "B": zeros(L, batch, W - 1, G * N),
-                     "C": zeros(L, batch, W - 1, G * N)},
-            "state": zeros(L, batch, H, P, N),
-            "next_pos": 0}
+    cache = {"conv": {"x": zeros(L, batch, W - 1, d_inner),
+                      "B": zeros(L, batch, W - 1, G * N),
+                      "C": zeros(L, batch, W - 1, G * N)},
+             "state": zeros(L, batch, H, P, N),
+             "next_pos": 0}
+    return attention.abstract_pos(cache) if abstract else cache
+
+
+def cache_logical_specs() -> dict:
+    return {
+        "conv": {"x": ("layers", "cache_batch", None, "mlp"),
+                 "B": ("layers", "cache_batch", None, None),
+                 "C": ("layers", "cache_batch", None, None)},
+        "state": ("layers", "cache_batch", "heads", "head_dim", "state"),
+        "next_pos": (),
+    }
 
 
 @torch.no_grad()

@@ -55,6 +55,9 @@ class VisionLM(dense.DenseLM):
         return super().leaf(name, layer, stack)
 
 
+LM = VisionLM
+
+
 @torch.no_grad()
 def init(cfg: ModelConfig, seed: int = 0, *, device=None) -> VisionLM:
     """Random parameters with the JAX package's initializers, drawn leaf

@@ -132,6 +132,9 @@ def init(cfg: ModelConfig, seed: int = 0, *, device=None) -> WhisperLM:
                              seed, dev)
 
 
+LM = WhisperLM
+
+
 # ---------------------------------------------------------------------------
 # Blocks (LayerNorm + biased projections, Whisper-style)
 # ---------------------------------------------------------------------------
@@ -257,19 +260,31 @@ def loss_fn(cfg: ModelConfig, model: WhisperLM, batch: dict) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def init_decode_cache(cfg: ModelConfig, batch: int, context_len: int, *,
-                      device=None) -> dict:
+                      device=None, abstract: bool = False) -> dict:
     """The self-attention cache (k, v over ``context_len`` slots) and the
-    cross-attention k/v over the encoder's frames."""
+    cross-attention k/v over the encoder's frames; ``abstract=True``
+    gives the dry-run's meta leaves."""
     L, H, hd = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
     F_ = cfg.encoder.n_frontend_tokens
-    dev = _device.resolve(device)
+    dev = torch.device("meta") if abstract else _device.resolve(device)
     cache = attention.init_cache(L, batch, context_len, H, hd,
                                  common.torch_dtype(cfg.dtype), device=dev)
     for name in ("cross_k", "cross_v"):
         cache[name] = torch.zeros((L, batch, F_, H, hd),
                                   dtype=common.torch_dtype(cfg.dtype),
                                   device=dev)
-    return cache
+    return attention.abstract_pos(cache) if abstract else cache
+
+
+def cache_logical_specs() -> dict:
+    return {
+        "k": ("layers", "cache_batch", "cache_seq", "kv", "head_dim"),
+        "v": ("layers", "cache_batch", "cache_seq", "kv", "head_dim"),
+        "cross_k": ("layers", "cache_batch", None, "kv", "head_dim"),
+        "cross_v": ("layers", "cache_batch", None, "kv", "head_dim"),
+        "kv_pos": (None,),
+        "next_pos": (),
+    }
 
 
 @torch.no_grad()

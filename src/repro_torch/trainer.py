@@ -11,8 +11,10 @@ halves their bytes, as the JAX package's plans do for the big archs).
 A train state is ``{"params": model, "opt": {"m", "v", "step"}}``: the
 model module (its parameters require grad), and the AdamW moments keyed
 by the parameters' names. The step updates the module's parameters in
-place and returns the state with the new moments. ``abstract_train_state``
-(the dry-run's shapes) is not ported: it comes with the dry-run slice.
+place and returns the state with the new moments.
+:func:`abstract_train_state` is the dry-run's stand-in, with the JAX
+package's tree: the parameter tree of ``models.abstract_params`` and
+its moments as meta tensors.
 """
 from __future__ import annotations
 
@@ -21,7 +23,9 @@ from typing import Callable
 import torch
 
 from repro_torch import models
+from repro_torch import tree as _tree
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models.common import torch_dtype
 from repro_torch.optim import AdamWConfig, adamw_init, adamw_update
 
 
@@ -32,6 +36,24 @@ def init_train_state(cfg: ModelConfig, opt_cfg: AdamWConfig, seed: int = 0,
     device; raises without one)."""
     model = models.init(cfg, seed, device=device).requires_grad_(True)
     return {"params": model, "opt": adamw_init(model, opt_cfg)}
+
+
+def abstract_train_state(cfg: ModelConfig, opt_cfg: AdamWConfig) -> dict:
+    """The train state as meta tensors (no allocation): parameters in the
+    JAX package's tree, moments in ``opt_cfg.moment_dtype``, a 0-d
+    int32 step."""
+    params = models.abstract_params(cfg)
+    mdt = torch_dtype(opt_cfg.moment_dtype)
+
+    def moments():
+        return _tree.unflatten({
+            path: torch.empty(p.shape, dtype=mdt, device="meta")
+            for path, p in _tree.flatten(params)})
+
+    return {"params": params,
+            "opt": {"m": moments(), "v": moments(),
+                    "step": torch.empty((), dtype=torch.int32,
+                                        device="meta")}}
 
 
 def _split_micro(batch: dict, m: int) -> dict:
