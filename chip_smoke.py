@@ -10,11 +10,12 @@ two main paths through the entry points a user calls:
 
 * the FitGpp engine: the engine's kernel path against its plain path
   (paper-synthetic, the gang scenarios for every policy, gangs with
-  backfill), then the paper's FIFO-vs-FitGpp comparison at the paper's
-  scale (84 nodes, 2**16 jobs) through
-  ``repro_torch.api.compare_policies``, then gang-heavy on the same 84
-  nodes (2**12 jobs) under fifo, fitgpp and fitgpp with backfill
-  through ``repro_torch.api.run_experiment``; then the host numpy
+  backfill), and the card against the CPU where random draws decide
+  (RAND; fitgpp on gang-heavy), then the paper's FIFO-vs-FitGpp
+  comparison at the paper's scale (84 nodes, 2**16 jobs) through
+  ``repro_torch.api.run_experiment`` on one shared JobSet, then
+  gang-heavy on the same 84 nodes (2**12 jobs) under fifo, fitgpp and
+  fitgpp with backfill through the same entry point; then the host numpy
   reference engine (``engine="reference"``) on the paper's cell, the
   same-host baseline, held against the torch engine's results; then
   the torch engine traced on the same cell (its event ring; fifo and
@@ -162,6 +163,15 @@ KERNEL_AKEY_SHAPES = [(1, STREAM_POOL, PAPER_NODES),
 # queue pass, and built like fitgpp's gang-score pass
 KERNEL_GANG_SHAPE = (1, GANG_JOBS, PAPER_NODES)
 ENGINE_POLICIES = ("fifo", "fitgpp", "minsize", "lrtp", "srtp", "rand")
+# phase engine's card-against-CPU runs where draws decide (policy,
+# scenario, nodes, jobs, P, seed): RAND's ranks (6 draws), and
+# gang-heavy under fitgpp (126 over-cap signals, 5 width-1 draws), the
+# last two cases of
+# tests/test_torch_kernels_cuda.py::test_single_trial_draws_card_equal_cpu:
+# cut from its first two (256 and 192 jobs) so that they cost no more
+# than phases paper and reference save by building their JobSet once
+ENGINE_DRAW_CASES = (("rand", "paper-synthetic", 8, 128, 2, 3),
+                     ("fitgpp", "gang-heavy", 12, 96, 2, 5))
 # phase sweep: Fig. 4 as benchmarks/paper_tables.py runs it at
 # REPRO_BENCH_SCALE=full (fitgpp, P = 1, 8 workloads of 2**16 jobs from
 # workload.generate at seeds 1000 * i, 84 nodes), every trial in one
@@ -639,7 +649,7 @@ def phase_kernel(torch, np, shapes=KERNEL_SHAPES):
 def kernel_vs_plain(torch, cfg, jobs, what):
     """Run ``cfg`` on ``jobs`` (on the card) along the kernel path and
     along the plain path; the two final States must be equal field for
-    field, the generator included. Returns the kernel path's State (as
+    field, the draw count included. Returns the kernel path's State (as
     numpy), the two wall times and the kernel path's launches."""
     from repro_torch.core import sim_torch
     from repro_torch.kernels import ops
@@ -670,10 +680,12 @@ def kernel_vs_plain(torch, cfg, jobs, what):
 
 def phase_engine(torch, n_jobs=ENGINE_JOBS):
     """The engine's kernel path against its plain path on the card (same
-    generator seed, full State equal, generator included): paper-
-    synthetic; the gang scenarios under every policy; gang-heavy with
-    backfill. Then the card against the CPU plain path on a small
-    contended input."""
+    seed, full State equal, draw count included): paper-synthetic; the
+    gang scenarios under every policy; gang-heavy with backfill. Then
+    the card against the CPU plain path where draws decide: RAND on a
+    small contended paper-synthetic input, and fitgpp on gang-heavy
+    (over-cap signals, a drawn fallback): the draws are counter-based,
+    so the card's State equals the CPU's field for field."""
     from repro_torch import api, scenarios
     from repro_torch.core import sim_torch
     cfg = api.make_config("fifo", n_jobs=n_jobs, n_nodes=PAPER_NODES,
@@ -721,26 +733,36 @@ def phase_engine(torch, n_jobs=ENGINE_JOBS):
           "cases": len(cases), "seconds": time.perf_counter() - t0,
           "preempting_cases": sum(c["preemptions"] > 0 for c in cases),
           "runs": cases})
-    # small contended input: the card's kernel path against the CPU
-    # plain path (no fallback draw fires here, so the two generators
-    # never decide anything)
-    small = api.make_config("fitgpp", n_jobs=256, n_nodes=8, seed=2, P=2)
-    js = scenarios.build("paper-synthetic", small)
-    states = [sim_torch.state_to_numpy(sim_torch.run(
-        small, sim_torch.jobs_from_jobset(js, dev), 2))
-        for dev in ("cuda", "cpu")]
-    check(states[0]["fallback_count"] == 0, "small run fell back")
-    diff = [f for f in sim_torch.state_diff_fields(*states) if f != "rng"]
-    check(not diff, f"card kernel path differs from the CPU plain path "
-          f"in {diff}")
-    emit({"phase": "engine_card_vs_cpu", "n_jobs": 256, "n_nodes": 8,
-          "equal": True, "preemptions": int(states[0]["preempt_count"]
-                                              .sum())})
+    t0 = time.perf_counter()
+    draws = []
+    for policy, scenario, nodes, n, P, seed in ENGINE_DRAW_CASES:
+        small = api.make_config(policy, n_jobs=n, n_nodes=nodes, seed=seed,
+                                P=P)
+        js = scenarios.build(scenario, small)
+        states = [sim_torch.state_to_numpy(sim_torch.run(
+            small, sim_torch.jobs_from_jobset(js, dev), seed))
+            for dev in ("cuda", "cpu")]
+        what = f"{scenario}/{policy}"
+        check(states[1]["draws"] > 0, f"{what}: no draw")
+        check(policy == "rand" or states[1]["fallback_count"] > 0,
+              f"{what}: no fallback")
+        diff = sim_torch.state_diff_fields(*states)
+        check(not diff, f"{what}: the card's State differs from the CPU's "
+              f"in {diff}")
+        draws.append({"scenario": scenario, "policy": policy, "n_jobs": n,
+                      "n_nodes": nodes, "draws": int(states[0]["draws"]),
+                      "fallback_count": int(states[0]["fallback_count"]),
+                      "preemptions": int(states[0]["preempt_count"].sum())})
+    emit({"phase": "engine_card_vs_cpu", "equal": True, "runs": draws,
+          "seconds": time.perf_counter() - t0})
 
 
 def phase_paper(torch, np, runs, n_jobs=PAPER_JOBS):
-    """The main path: api.compare_policies at the paper's scale; each
-    policy's result is kept in ``runs.paper``."""
+    """The main path: ``api.run_experiment`` of fifo and fitgpp on the
+    paper's cell (the JobSet built once, ``runs.jobset``, shared with
+    phases reference and stream, as ``api.compare_policies`` shares
+    one); each policy's result is kept in ``runs.paper``. Its wall time
+    holds the JobSet's build, as ``compare_policies``'s did."""
     from repro_torch import api
     from repro_torch.core import sim_torch
     from repro_torch.kernels import ops
@@ -750,8 +772,9 @@ def phase_paper(torch, np, runs, n_jobs=PAPER_JOBS):
     torch.cuda.reset_peak_memory_stats()
     try:
         t0 = time.perf_counter()
-        rs = api.compare_policies(["fifo", "fitgpp"], n_jobs=n_jobs,
-                                  n_nodes=PAPER_NODES, seed=0)
+        cfg, js, build_s = runs.jobset(n_jobs)
+        rs = {p: api.run_experiment(cfg=cfg, policy=p, jobs=js)
+              for p in ("fifo", "fitgpp")}
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         runs.paper_peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -786,7 +809,7 @@ def phase_paper(torch, np, runs, n_jobs=PAPER_JOBS):
     te_cut = 1.0 - fit["TE"]["p95"] / fifo["TE"]["p95"]
     runs.paper_wall_s = wall
     emit({"phase": "paper_scale", "n_jobs": n_jobs, "n_nodes": PAPER_NODES,
-          "wall_s": wall, "launches": launches,
+          "wall_s": wall, "build_s": build_s, "launches": launches,
           "peak_device_gb": runs.paper_peak_gb,
           "kernel_ms_total": sum(kernel_ms),
           "kernel_events_in_wall": True,

@@ -42,19 +42,18 @@ round's selection, and every ``BE_ROUNDS`` BE rounds, run as one CUDA
 graph replay, captured once per run; the CPU runs the same rounds
 eagerly.
 
-Randomness. ``sim_torch`` draws from one ``torch.Generator`` a run,
-which cannot be batched and whose CUDA stream differs from its CPU
-stream. This engine uses a counter-based draw instead: job j's uniform
-is an integer hash of (the trial's seed, the lane's draw count, j) in
-int64 tensor ops (:func:`uniforms`), and a lane's count advances by one
-at each invocation of a draw site: a score policy's width-1 selection
-(its fallback candidate, the running BE job of the largest uniform, is
-drawn whether used or not) and a RAND selection (one uniform per job as
-its ranks). So a lane's draws depend on its own trial only: the results
-do not depend on B, on which trials share a batch or in what order, nor
-on the device. Exact parity with ``sim_torch`` and the JAX engine holds
-where no draw decides (``fallback_count == 0`` and no RAND), as between
-those two.
+Randomness is counter-based, as in ``sim_torch``: job j's uniform is
+an integer hash of (the trial's seed, the lane's draw count, j) in
+int64 tensor ops (:func:`uniforms`, over ``sim_torch.job_uniforms``),
+and a lane's count advances by one at each invocation of a draw site: a
+score policy's width-1 selection (its fallback candidate, the running
+BE job of the largest uniform, is drawn whether used or not) and a RAND
+selection (one uniform per job as its ranks). So a lane's draws depend
+on its own trial only: the results do not depend on B, on which trials
+share a batch or in what order, nor on the device, and each lane equals
+``sim_torch.run`` on its trial, draws and ``draws`` count included.
+Exact parity with the JAX engine holds where no draw decides
+(``fallback_count == 0`` and no RAND).
 
 Sentinel jobs (``valid=False``) are born DONE: they never arrive, queue,
 run or become candidates, and a trial of sentinels only is done at
@@ -71,13 +70,12 @@ import numpy as np
 import torch
 
 from repro_torch.configs.cluster import SimConfig
-from repro_torch.draws import M32
-from repro_torch.draws import mix32 as _mix32
 from repro_torch.core import policy_registry
 from repro_torch.core.sim_torch import (_BIG, _EPS, _INF, BOOL, F32, I32,
                                         MAX_TICKS, Jobs, _argmax_key,
                                         _argmin_key, _best_victim_node,
-                                        _gang_fit, _node_fits)
+                                        _gang_fit, _node_fits, draw_key,
+                                        job_uniforms)
 from repro_torch.core.types import DONE, GRACE, NOT_ARRIVED, QUEUED, RUNNING
 from repro_torch.kernels import ops
 from repro_torch.kernels.schedule_step import covers
@@ -160,21 +158,18 @@ def state_to_numpy(st: State) -> dict:
 
 def lane(arrays: dict, b: int) -> dict:
     """Trial ``b`` of a :func:`state_to_numpy` dict, its fields named
-    and typed as ``sim_torch.state_to_numpy``'s (no ``rng``, ring or
-    ``draws``), for comparison with ``sim_torch.state_diff_fields``."""
-    return {k: v[b] for k, v in arrays.items() if k != "draws"}
+    and typed as ``sim_torch.state_to_numpy``'s (no ring), for
+    comparison with ``sim_torch.state_diff_fields``."""
+    return {k: v[b] for k, v in arrays.items()}
 
 
 def uniforms(seed: torch.Tensor, count: torch.Tensor, n: int
              ) -> torch.Tensor:
     """(B, n) float64 uniforms in [0, 1): entry (b, j) hashes
-    (``seed[b]``, ``count[b]``, j), 53 bits from two 32-bit words; the
-    same on every device (int64 tensor ops only)."""
-    key = _mix32(_mix32(seed.to(I64) & M32) ^ (count.to(I64) & M32))
+    (``seed[b]``, ``count[b]``, j) (``sim_torch.draw_key``,
+    ``job_uniforms``); the same on every device."""
     j = torch.arange(n, dtype=I64, device=seed.device)
-    h1 = _mix32(key[:, None] ^ j)
-    h2 = _mix32(h1 ^ 0x9E3779B9)
-    return ((h1 << 21) | (h2 >> 11)).to(torch.float64) * 2.0 ** -53
+    return job_uniforms(draw_key(seed, count)[:, None], j)
 
 
 @dataclass

@@ -29,11 +29,23 @@ job in key order while at most ``backfill_depth`` blocked jobs are
 skipped in a pass; the fused pass's ``be_pick``/``nskip`` carry that
 scan.
 
-Randomness (the score policies' fallback candidate, RAND's ranks) comes
-from the ``torch.Generator`` in ``State.rng``: exact parity with the JAX
-engine holds where no draw is used (``fallback_count == 0`` and no
-RAND), and the generator advances identically on the kernel path and
-the plain path.
+Randomness (the score policies' fallback candidate, RAND's ranks) is
+counter-based, as in the batched engine (``core/sim_batch.py``): job
+j's uniform hashes (the run's seed, the State's draw count
+``State.draws``, j's arrival key) in int64 tensor ops
+(:func:`job_uniforms`), so a draw gives the same bits on every device.
+The count advances by one at each invocation of a draw site, the
+batched engine's: a score policy's width-1 selection (its fallback
+candidate, the running BE job of the largest uniform, takes its draw
+number whether used or not; its uniforms are hashed only when it is
+used) and a RAND selection (one uniform per job as its ranks,
+width 1 or a gang). A score policy's gang selection draws nothing. So
+this engine equals ``sim_batch`` at B = 1 job for job, draws included,
+and the stream engine, which keys a draw on each job's global arrival
+order (``Jobs.akey``), equals this engine's monolithic run whatever
+slot a job lands in. Exact parity with the JAX engine, whose draws come
+from ``jax.random`` keys, holds where no draw decides
+(``fallback_count == 0`` and no RAND).
 
 ``trace=True`` records every scheduler event into the State's ring
 buffer (``State.ev_buf``, the ``obs/ring.py`` layout), in the JAX
@@ -58,6 +70,7 @@ from repro_torch.core import policy_registry
 from repro_torch.core.engine.placement import FIT_EPS
 from repro_torch.core.types import (DONE, GRACE, NOT_ARRIVED, QUEUED,
                                     RUNNING, JobSet)
+from repro_torch.draws import M32, _mix32_host, mix32
 from repro_torch.kernels import ops
 from repro_torch.kernels.schedule_step import covers
 from repro_torch.obs import ring as obs_ring
@@ -68,6 +81,7 @@ _EPS = FIT_EPS
 _BIG = 1 << 30        # "no event pending" sentinel (int32-safe)
 MAX_TICKS = 1 << 22
 I32, F32, BOOL = torch.int32, torch.float32, torch.bool
+I64 = torch.int64
 
 
 @dataclass
@@ -103,8 +117,9 @@ class Jobs:
 class State:
     """Engine state, field for field the JAX ``State``. Tensors live on
     the jobs' device; ``t``, ``top_key``, ``n_done``,
-    ``fallback_count`` and ``ev_n`` are host scalars and ``rng`` is a
-    ``torch.Generator`` on the same device.
+    ``fallback_count`` and ``ev_n`` are host scalars. In place of the
+    JAX ``rng`` key the State carries the run's ``seed`` and its draw
+    count ``draws`` (host ints; module docstring).
 
     The event ring: ``ev_buf`` is ``(capacity + 1, 4 + n_words)`` int32
     (``obs/ring.py``; the last row is the dump row and stays zero),
@@ -128,7 +143,8 @@ class State:
     last_resume: torch.Tensor    # (N,) i32
     awaiting_resume: torch.Tensor  # (N,) bool
     n_done: int
-    rng: torch.Generator
+    seed: int
+    draws: int
     fallback_count: int
     ev_buf: torch.Tensor         # (cap + 1, 4 + n_words) i32, or (0, 0)
     ev_n: int
@@ -137,7 +153,8 @@ class State:
 _JOB_DTYPES = {"submit": I32, "exec_total": I32, "demand": F32,
                "is_te": BOOL, "gp": I32, "width": I32, "valid": BOOL}
 _HOST_SCALARS = {"t": np.int32, "top_key": np.float32, "n_done": np.int32,
-                 "fallback_count": np.int32, "ev_n": np.int32}
+                 "draws": np.int64, "fallback_count": np.int32,
+                 "ev_n": np.int32}
 _STATE_DTYPES = {"state": I32, "remaining": I32, "assign": BOOL,
                  "preempt_count": I32, "grace_left": I32, "queue_key": F32,
                  "finish": I32, "te_pending": I32, "victim_of": I32,
@@ -171,10 +188,23 @@ def jobs_from_jobset(js: JobSet, device=None) -> Jobs:
         is_te=js.is_te, gp=js.gp, width=js.n_nodes), device)
 
 
-def _generator(device: torch.device, seed: int) -> torch.Generator:
-    gen = torch.Generator(device=device)
-    gen.manual_seed(int(seed))
-    return gen
+def draw_key(seed, count):
+    """The key of a run's draw number ``count``: a 32-bit hash of
+    (seed, count), host ints or (B,) int64 tensors alike."""
+    if isinstance(seed, torch.Tensor):
+        return mix32(mix32(seed.to(I64) & M32) ^ (count.to(I64) & M32))
+    return _mix32_host(_mix32_host(int(seed)) ^ (int(count) & M32))
+
+
+def job_uniforms(key, ids: torch.Tensor) -> torch.Tensor:
+    """float64 uniforms in [0, 1), one per entry of ``ids`` (int64 job
+    ids below 2^32, broadcast against ``key``): 53 bits from two 32-bit
+    hashes of ``key ^ id``, int64 tensor ops only, so the same on every
+    device. ``mix32`` is a bijection of 32-bit words, so distinct ids
+    under one key never tie."""
+    h1 = mix32(key ^ ids)
+    h2 = mix32(h1 ^ 0x9E3779B9)
+    return ((h1 << 21) | (h2 >> 11)).to(torch.float64) * 2.0 ** -53
 
 
 def _ring_buffer(n_nodes: int, capacity: int, dev) -> torch.Tensor:
@@ -215,7 +245,8 @@ def init_state(jobs: Jobs, n_nodes: int, node_cap, seed: int,
         last_resume=full(-1, I32),
         awaiting_resume=full(False, BOOL),
         n_done=int((~jobs.valid).sum()),
-        rng=_generator(dev, seed),
+        seed=int(seed),
+        draws=0,
         fallback_count=0,
         ev_buf=_ring_buffer(n_nodes, int(trace_capacity), dev),
         ev_n=0,
@@ -223,30 +254,32 @@ def init_state(jobs: Jobs, n_nodes: int, node_cap, seed: int,
 
 
 def state_from_numpy(arrays: dict, seed: int, device=None) -> State:
-    """An untraced State from numpy arrays named as the JAX ``State``
-    fields (every field except ``rng``, ``ev_buf`` and ``ev_n``, which
-    are not read: the ring is zero-size and ``ev_n`` 0); the generator
-    is seeded with ``seed``."""
+    """An untraced State of the run seeded ``seed`` from numpy arrays
+    named as the JAX ``State`` fields (``rng``, ``ev_buf`` and ``ev_n``
+    are not read: the ring is zero-size and ``ev_n`` 0) and the draw
+    count ``draws`` (0 when absent, as in a JAX State)."""
     dev = _device.resolve(device)
     kw = {f: _tensor(arrays[f], dt, dev) for f, dt in _STATE_DTYPES.items()}
     kw["t"] = int(arrays["t"])
     kw["top_key"] = float(np.float32(arrays["top_key"]))
     kw["n_done"] = int(arrays["n_done"])
     kw["fallback_count"] = int(arrays["fallback_count"])
-    return State(rng=_generator(dev, seed),
-                 ev_buf=_ring_buffer(0, 0, dev), ev_n=0, **kw)
+    kw["draws"] = int(arrays.get("draws", 0))
+    return State(seed=int(seed), ev_buf=_ring_buffer(0, 0, dev), ev_n=0,
+                 **kw)
 
 
 def state_to_numpy(st: State) -> dict:
-    """Every State field as numpy, the generator's state as ``rng``
-    (uint8 bytes)."""
+    """Every State field but ``seed`` (a parameter of the run, which
+    :func:`state_from_numpy` takes apart) as numpy; ``draws`` as
+    ``sim_batch.state_to_numpy`` names it."""
     out = {}
     for f in fields(State):
         x = getattr(st, f.name)
+        if f.name == "seed":
+            continue
         if f.name in _HOST_SCALARS:
             out[f.name] = np.asarray(x, _HOST_SCALARS[f.name])
-        elif f.name == "rng":
-            out[f.name] = x.get_state().numpy().copy()
         else:
             out[f.name] = x.cpu().numpy()
     return out
@@ -631,6 +664,8 @@ def _make_step(cfg: SimConfig, jobs: Jobs, n_nodes: int,
     gp_host = jobs.gp.cpu().numpy()
     width_host = jobs.width.cpu().numpy()
     ring = _Ring(n_nodes, N, dev) if trace else None
+    # a draw's job ids: the global arrival order (row index, or akey)
+    draw_ids = arrival_keys.to(I64)
 
     def cand_mask(st):
         return (st.state == RUNNING) & be_job
@@ -683,8 +718,9 @@ def _make_step(cfg: SimConfig, jobs: Jobs, n_nodes: int,
 
     def score_select(st: State, te: int) -> int:
         """Eq. 2 eligibility (best assigned node), P cap and Eq. 4
-        masked argmin, with the paper's random fallback; the fallback
-        candidate is drawn on every invocation, used or not."""
+        masked argmin, with the paper's random fallback; every
+        invocation takes a draw number, and the fallback's uniforms are
+        hashed only when it is used."""
         cand = cand_mask(st)
         under = st.preempt_count < P
         if spec.victim_from_pass:
@@ -701,12 +737,14 @@ def _make_step(cfg: SimConfig, jobs: Jobs, n_nodes: int,
             mask = cand & (best >= -_EPS) & under
             main = _argmin_key(mask, score, akey)
             mask_any = mask.any()
-        p = cand.to(F32)
-        p = p / p.sum().clamp(min=1.0)
-        rnd = torch.multinomial(p, 1, generator=st.rng)
-        mask_any, main, rnd = _ints(mask_any, main, rnd)
-        st.fallback_count += 1 - mask_any
-        return main if mask_any else rnd
+        count = st.draws
+        st.draws += 1
+        mask_any, main = _ints(mask_any, main)
+        if mask_any:
+            return main
+        st.fallback_count += 1
+        u = job_uniforms(draw_key(st.seed, count), draw_ids)
+        return int(_argmax_key(cand, u, akey))
 
     def until_fits_select(st: State, te: int, rank_val) -> None:
         """LRTP/SRTP/RAND: signal victims (best ``rank_val`` first,
@@ -748,9 +786,16 @@ def _make_step(cfg: SimConfig, jobs: Jobs, n_nodes: int,
             st.free, st.pending_free, cand, st.preempt_count < P, no_jobs,
             zero3, node_cap, s=s, akey=akey).scores
 
+    def draw(st: State) -> torch.Tensor:
+        """One uniform per job at the State's draw count, which
+        advances by one."""
+        u = job_uniforms(draw_key(st.seed, st.draws), draw_ids)
+        st.draws += 1
+        return u
+
     def uniform(st: State):
-        """The rank policies' draw: one uniform per job."""
-        return lambda: torch.rand(N, generator=st.rng, device=dev)
+        """The rank policies' draw (RAND's ranks), taken when called."""
+        return lambda: draw(st)
 
     def trigger_preemption(st: State, te: int) -> None:
         w = int(width_host[te])

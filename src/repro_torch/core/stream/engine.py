@@ -20,13 +20,13 @@ device memory) is driven by a host loop that alternates
      accumulation).
 
 The State (``t``, ``top_key``, the free vectors, ``fallback_count``, the
-live rows) carries across rounds untouched, so a streamed run equals the
-monolithic engine on the same workload job for job
-(:func:`verify_prefix_parity`), as long as no score policy draws its
-random fallback: the port draws the fallback candidate with
-``torch.multinomial`` over all N rows, whose generator use depends on N,
-so the generator's final state is compared only for the policies that
-draw nothing (the JAX package compares its key for every policy).
+draw count, the live rows) carries across rounds untouched, so a
+streamed run equals the monolithic engine on the same workload job for
+job (:func:`verify_prefix_parity`), random draws included: a draw
+hashes each job's global sequence number (``Jobs.akey``), not its slot,
+so a score policy's fallback victim and RAND's ranks are the monolithic
+run's whatever the pool size, and the draw count is compared for every
+policy (as the JAX package compares its key).
 
 A slot is recyclable when its job is DONE and no in-grace victim still
 references it (``victim_of`` points at TE slots; a vacate decrements
@@ -52,7 +52,7 @@ import torch
 
 from repro_torch import device as _device
 from repro_torch.configs.cluster import SimConfig
-from repro_torch.core import policy_registry, sim_torch, workload
+from repro_torch.core import sim_torch, workload
 from repro_torch.core.stream.source import _FIELDS, JobSource, materialize
 from repro_torch.core.types import DONE, GRACE, NOT_ARRIVED, JobSet
 from repro_torch.obs import ring as obs_ring
@@ -193,7 +193,7 @@ class StreamResult:
     arrival sequence number). ``summary()`` mirrors
     ``sim_torch.result_summary``. ``events`` is the remapped event
     stream when tracing without an ``event_sink``, else None.
-    ``final_rng`` is the generator's state (uint8 bytes);
+    ``final_draws`` is the engine's draw count at the end;
     ``iterations`` and ``acting_ticks`` add up the rounds' loops."""
     n_jobs: int
     capacity: int
@@ -202,7 +202,7 @@ class StreamResult:
     fallback_count: int
     trace_overflow: int
     max_live: int
-    final_rng: np.ndarray = field(repr=False)
+    final_draws: int
     submit: np.ndarray = field(repr=False)
     exec_total: np.ndarray = field(repr=False)
     is_te: np.ndarray = field(repr=False)
@@ -496,7 +496,7 @@ class StreamEngine:
             n_jobs=n_done, capacity=self.capacity, rounds=rounds,
             makespan=st.t, fallback_count=st.fallback_count,
             trace_overflow=self._overflow, max_live=max_live,
-            final_rng=st.rng.get_state().numpy().copy(),
+            final_draws=st.draws,
             events=(self._events if self.trace
                     and self.event_sink is None else None),
             n_spilled=self._spill.total, spill_peak=self._spill.peak,
@@ -520,27 +520,20 @@ def _diff_vs_monolithic(cfg: SimConfig, res: StreamResult, js: JobSet,
                         time_mode: Optional[str], device) -> List[str]:
     """Run ``js`` through the monolithic ``sim_torch`` engine and return
     the names of the per-job and result fields that differ from the
-    streamed ``res`` (an empty list: equal bit for bit). Score policies
-    must draw no random fallback in either run; their generator states
-    are not compared (the fallback candidate's draw over all N rows
-    uses the generator by amounts that depend on N, pool or job set)."""
+    streamed ``res`` (an empty list: equal bit for bit), the draw count
+    and the fallback count included."""
     jobs = sim_torch.jobs_from_jobset(js, device)
     st = sim_torch.run(cfg, jobs, cfg.seed, time_mode=time_mode)
-    score = policy_registry.get_policy(cfg.policy).kind == "score"
-    if score and (res.fallback_count or st.fallback_count):
-        raise ValueError(
-            "parity window needs fallback_count == 0 for score policies "
-            "(the random fallback draw is pool-size dependent); got "
-            f"stream={res.fallback_count} monolithic={st.fallback_count}")
     mono = {k: getattr(st, k).cpu().numpy()
             for k in ("finish", "preempt_count", "last_signal",
                       "last_vacate", "last_resume")}
     diff = [k for k, v in mono.items() if not (v == getattr(res, k)).all()]
     if res.makespan != st.t:
         diff.append("t")
-    if not score and not np.array_equal(
-            res.final_rng, st.rng.get_state().numpy()):
-        diff.append("rng")
+    if res.final_draws != st.draws:
+        diff.append("draws")
+    if res.fallback_count != st.fallback_count:
+        diff.append("fallback_count")
     return diff
 
 
@@ -551,9 +544,8 @@ def verify_prefix_parity(cfg: SimConfig, n_jobs: int = 512,
     """The parity-window contract, executable: stream a synthetic prefix
     through the macro-round engine and run the same materialized job set
     through the monolithic ``sim_torch`` engine; return the names of the
-    fields that differ (an empty list: equal bit for bit). Raises when a
-    score policy drew its random fallback or the streamed run
-    spilled."""
+    fields that differ (an empty list: equal bit for bit). Raises when
+    the streamed run spilled."""
     dev = _device.resolve(device)
     src = JobSource(workload.stream_chunks(cfg, n_jobs, chunk=chunk))
     res = StreamEngine(cfg, src, capacity=capacity, time_mode=time_mode,

@@ -16,32 +16,60 @@ case this one
 * accounts every sharded input and output per device from its shard
   shape, exactly (``argument_gb``, ``output_gb``, and ``alias_gb`` for
   what JAX donates: the train state, the decode cache);
-* runs one device's step at full width on the meta device
-  (:func:`meta_step`): :class:`StepCounter` counts its matrix products
-  by ``FlopCounterMode``'s formulas, the kernel wrappers' meta route
-  adds the kernels' FLOPs, and the counter's peak bytes of activations
-  and temporaries give ``temp_gb``;
+* runs one device's step on the meta device at the widths one device
+  holds (:func:`local_config`, :func:`meta_step`):
+  :class:`StepCounter` counts its matrix products by
+  ``FlopCounterMode``'s formulas, the kernel wrappers' meta route adds
+  the kernels' FLOPs, and the counter's peak bytes of activations and
+  temporaries give ``temp_gb``;
 * counts collective bytes from the plan
   (``roofline.plan_collectives``) and computes the roofline with H100
   constants (``launch/h100.py``).
 
 Each artifact keeps the JAX one's keys; ``counted_flops_per_device``
 and ``counted_over_analytic`` stand where JAX has its cost analysis,
-and ``lower_s`` is the seconds of the meta run. The meta run does not
-split the model axis: where the plan uses "model" for tensor
-parallelism, ``temp_gb`` is an upper bound and the artifact says so
-(``memory.temp_gb_upper_bound``). Its parameters are made before the
-count and its gradients left out, so where the plan splits weights
-over a batch or data axis (FSDP, ZeRO-3), ``temp_gb`` adds the largest
-layer's gathered weights and, in training, their unsharded gradients
-(``memory.fsdp_gather_gb``, from ``roofline.fsdp_unit_bytes``): a
-model of what FSDP holds at a layer's use, so there ``temp_gb`` is an
-estimate and the CLI prints ``peak~``. Importing this module sets no
+and ``lower_s`` is the seconds of the meta run.
+
+Where the plan uses "model" for tensor parallelism the meta run takes
+the device's local widths: a head, kv-head, ``d_ff``, expert, RG-LRU
+width or vocab dimension is divided by the model axis where
+``constraints.constrain`` puts "model" on it (the JAX models' calls on
+q, the MLP's and the RG-LRU's hidden; the same rule on the kv heads,
+the experts and the vocab, which JAX leaves to its propagation from
+the weights). ``d_model`` and the residual stream stay whole. Where no
+consistent local config exists the run is an upper bound, and the
+artifact says so (``memory.temp_gb_upper_bound``; its FLOPs then
+over-count likewise):
+
+* GQA whose kv heads stay whole while the query heads split (8 kv
+  heads on a 16-wide axis beside 32–96 query heads, 4 beside qwen3's
+  32): the local run keeps the kv heads and takes the fewest query
+  heads that group onto them (``n_kv_heads``), more than the device's;
+* the ssm's mixer (mamba2), whose ``d_inner = expand * d_model`` has no
+  local form: it runs whole;
+* an expert split whose local capacity would differ from the global
+  one, or that leaves fewer experts than ``top_k``: the experts run
+  whole;
+* sequence parallelism (``tp_sp``): the residual stream's sequence
+  split has no local form (attention sees the whole sequence), so it
+  runs whole;
+* decode, whose cache sequence is split over "model" (flash-decode):
+  the local run reads the whole cache sequence.
+
+The step's parameters are made before the count and its gradients left
+out, so where the plan splits weights over a batch or data axis (FSDP,
+ZeRO-3), ``temp_gb`` adds the largest layer's gathered weights and, in
+training, their unsharded gradients (``memory.fsdp_gather_gb``, from
+``roofline.fsdp_unit_bytes``): a model of what FSDP holds at a layer's
+use, so there ``temp_gb`` is an estimate. The CLI marks the peak
+``peak=`` (exact shapes), ``peak<=`` (an upper bound), ``peak~`` (an
+estimate) or ``peak<=~`` (both). Importing this module sets no
 process-wide state.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import os
@@ -64,9 +92,9 @@ from repro_torch.configs.base import InputShape, ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.launch import roofline as rf
 from repro_torch.launch.mesh import make_production_mesh
-from repro_torch.models import attention, common
+from repro_torch.models import attention, common, moe
 from repro_torch.optim import AdamWConfig, adamw_update
-from repro_torch.sharding import plans
+from repro_torch.sharding import constraints, plans
 
 
 class StepCounter(TorchDispatchMode):
@@ -164,11 +192,79 @@ def _shapes(tree) -> dict:
             for p, t in _tree.flatten(tree)}
 
 
+def local_config(cfg: ModelConfig, shape: InputShape, plan, mesh):
+    """-> (the config at one device's widths, exact): the module
+    docstring's rule. ``exact`` is False where no consistent local
+    config exists; the config returned then keeps those dimensions
+    whole (or, for GQA, as few query heads as group onto the kv heads),
+    so its step is an upper bound."""
+    tp = plans.tp_size(plan, mesh)
+    if tp == 1:
+        return cfg, True
+    rows = plans.device_rows(shape.global_batch, plan, mesh)
+    T = rf.row_tokens(cfg, shape)
+    B = constraints.BATCH
+
+    def split(shp, *spec) -> bool:
+        """Does ``constrain`` put "model" on the dim spec'd "model"?"""
+        got = constraints.constrain(shp, *spec, mesh=mesh,
+                                    strategy=plan.strategy)
+        return got is not None and "model" in plans.entry_axes(
+            got[spec.index("model")])
+
+    kw = {}
+    exact = plan.strategy != "tp_sp" and shape.kind != "decode"
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    if cfg.family == "ssm":
+        exact = exact and not split((rows, T, cfg.ssm.expand * cfg.d_model),
+                                    B, None, "model")
+    elif split((rows, T, H, hd), B, None, "model", None):
+        kv = KV // tp if split((rows, T, KV, hd), B, None, "model",
+                               None) else KV
+        h = H // tp
+        if h % kv:
+            exact = False
+            h = kv * math.ceil(h / kv)
+        kw.update(n_heads=h, n_kv_heads=kv)
+    if cfg.family == "moe":
+        m = cfg.moe
+        E = m.num_experts
+        if split((E, T, cfg.d_model), "model", None, None):
+            loc = dataclasses.replace(m, num_experts=E // tp,
+                                      capacity_factor=m.capacity_factor / tp)
+            if loc.top_k <= loc.num_experts and moe.capacity(
+                    cfg.replace(moe=loc), T) == moe.capacity(cfg, T):
+                kw["moe"] = loc
+            else:
+                exact = False
+        elif split((rows, T, m.d_expert), B, None, "model"):
+            kw["moe"] = dataclasses.replace(m, d_expert=m.d_expert // tp)
+    elif cfg.d_ff and split((rows, T, cfg.d_ff), B, None, "model"):
+        kw["d_ff"] = cfg.d_ff // tp
+    if cfg.family == "hybrid":
+        R = cfg.recurrent.lru_width or cfg.d_model
+        if split((rows, T, R), B, None, "model"):
+            kw["recurrent"] = dataclasses.replace(cfg.recurrent,
+                                                  lru_width=R // tp)
+    if cfg.family == "audio":
+        enc = cfg.encoder
+        Fr = enc.n_frontend_tokens
+        if split((rows, Fr, enc.n_heads, hd), B, None, "model", None):
+            # the decoder's kv-head rule: MHA, so the heads always group
+            enc = dataclasses.replace(enc, n_heads=enc.n_heads // tp)
+        if split((rows, Fr, enc.d_ff), B, None, "model"):
+            enc = dataclasses.replace(enc, d_ff=enc.d_ff // tp)
+        kw["encoder"] = enc
+    if split((rows, T, cfg.vocab), B, None, "model"):
+        kw["vocab"] = cfg.vocab // tp
+    return cfg.replace(**kw), exact
+
+
 def meta_step(cfg: ModelConfig, shape: InputShape, plan, mesh,
               ocfg: AdamWConfig) -> dict:
-    """One device's step on the meta device at full width (the model
-    axis not split): {"temp_bytes", "gather_bytes", "counted_flops",
-    "seconds"}.
+    """One device's step on the meta device at its local widths
+    (:func:`local_config`): {"temp_bytes", "gather_bytes",
+    "counted_flops", "exact", "seconds"}.
 
     train: one microbatch of the device's rows (global batch ÷ the
     plan's batch axes ÷ microbatches, at least one row) through
@@ -181,9 +277,9 @@ def meta_step(cfg: ModelConfig, shape: InputShape, plan, mesh,
     FSDP the step's peak also holds ``gather_bytes``: the largest
     layer's gathered weights, and in training their gradient before
     its reduce-scatter, in the parameters' type.
-    ``counted_flops`` is the matrix products' FLOPs plus the kernels'
-    meta FLOPs, scaled to the device's rows and divided by the model
-    axis where it is used for tensor parallelism."""
+    ``counted_flops`` is the local run's matrix products' FLOPs plus
+    the kernels' meta FLOPs, scaled to the device's rows; ``exact`` is
+    :func:`local_config`'s (False: both are upper bounds)."""
     t0 = time.perf_counter()
     S = shape.seq_len
     gather = rf.fsdp_unit_bytes(cfg, shape, plan, mesh) \
@@ -191,6 +287,8 @@ def meta_step(cfg: ModelConfig, shape: InputShape, plan, mesh,
     dev_rows = plans.device_rows(shape.global_batch, plan, mesh)
     rows = dev_rows if shape.kind != "train" else \
         max(1, math.ceil(dev_rows / plan.microbatches))
+    opt_args = (cfg, plan, mesh, ocfg)
+    cfg, exact = local_config(cfg, shape, plan, mesh)
     model = models.abstract_model(cfg, requires_grad=shape.kind == "train")
     for k in ops.META_FLOPS:
         ops.META_FLOPS[k] = 0
@@ -203,7 +301,7 @@ def meta_step(cfg: ModelConfig, shape: InputShape, plan, mesh,
             grads = torch.autograd.grad(loss, params)
         temp = mem.peak(exclude=list(grads) + [loss]) + gather
         del loss, grads
-        temp = max(temp, _update_peak(cfg, plan, mesh, ocfg))
+        temp = max(temp, _update_peak(*opt_args))
     elif shape.kind == "prefill":
         batch = models.input_specs(cfg, rows, S, "prefill")
         with mem:
@@ -225,7 +323,7 @@ def meta_step(cfg: ModelConfig, shape: InputShape, plan, mesh,
     if shape.kind == "train":
         flops *= dev_rows / rows
     return {"temp_bytes": temp, "gather_bytes": gather,
-            "counted_flops": flops / plans.tp_size(plan, mesh),
+            "counted_flops": flops, "exact": exact,
             "seconds": time.perf_counter() - t0}
 
 
@@ -325,7 +423,7 @@ def dry_run(cfg: ModelConfig, shape: InputShape, mesh, *, run: bool = True,
         "alias_gb": alias / 1e9,
         "temp_gb": temp / 1e9,
         "peak_gb": (argument + output - alias + temp) / 1e9,
-        "temp_gb_upper_bound": plans.tp_size(plan, mesh) > 1,
+        "temp_gb_upper_bound": not step["exact"],
         "fsdp_gather_gb": step["gather_bytes"] / 1e9,
         "argument_bytes": args,
     }
@@ -345,6 +443,15 @@ def dry_run(cfg: ModelConfig, shape: InputShape, mesh, *, run: bool = True,
     return result
 
 
+def peak_mark(memory: dict) -> str:
+    """The CLI's mark before a case's peak GB: "<=" where ``temp_gb`` is
+    an upper bound, "~" where it is an estimate (FSDP), "<=~" where
+    both hold, "=" otherwise."""
+    mark = ("<=" if memory.get("temp_gb_upper_bound") else "") \
+        + ("~" if memory.get("fsdp_gather_gb") else "")
+    return mark or "="
+
+
 def lower_one(arch: str, shape_name: str, mesh, *, run: bool = True) -> dict:
     """-> result dict of ``arch`` at the named input shape (raises on a
     failure)."""
@@ -353,7 +460,13 @@ def lower_one(arch: str, shape_name: str, mesh, *, run: bool = True) -> dict:
 
 
 def main(argv=None):
-    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap = argparse.ArgumentParser(
+        description=__doc__.split("\n")[0],
+        epilog="Each OK line prints the device's peak GB as peak=X "
+               "(exact shapes), peak<=X (an upper bound: no consistent "
+               "local config, memory.temp_gb_upper_bound), peak~X (an "
+               "estimate: FSDP's gathered layer added, "
+               "memory.fsdp_gather_gb) or peak<=~X (both).")
     ap.add_argument("--arch", default="all",
                     help="arch id or 'all' (see configs.list_archs)")
     ap.add_argument("--shape", default="all",
@@ -390,8 +503,7 @@ def main(argv=None):
                         json.dump(res, f, indent=1)
                     mem = res.get("memory", {})
                     roof = res.get("roofline", {})
-                    le = "~" if mem.get("fsdp_gather_gb") else \
-                        "<=" if mem.get("temp_gb_upper_bound") else "="
+                    le = peak_mark(mem)
                     print(f"OK    {tag}  run={res['lower_s']}s "
                           f"peak{le}{mem.get('peak_gb', 0):.1f}GB "
                           f"dominant={roof.get('dominant', '-')}")

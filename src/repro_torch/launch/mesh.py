@@ -64,7 +64,7 @@ def make_local_mesh(device=None) -> Mesh:
     return Mesh(("data", "model"), (n, 1))
 
 
-def _available(device) -> int:
+def available_devices(device) -> int:
     """Devices of ``device``'s kind a sweep could use: the CUDA devices,
     or on the CPU one process per core."""
     dev = torch.device(device)
@@ -94,11 +94,11 @@ def mesh_for_sweep(n_trials: Optional[int] = None,
     device present; the port runs a table on ``device`` unless asked
     for more). Otherwise the JAX function's rules: ``min(devices,
     n_trials)``; asking for more devices than are present
-    (:func:`_available`) warns (``UserWarning``), never silently, and
+    (:func:`available_devices`) warns (``UserWarning``), never silently, and
     falls back to those present; a request for more than one that falls
     back to one warns again."""
     dev = _device.resolve(device)
-    avail = _available(dev)
+    avail = available_devices(dev)
     want = 1 if devices is None else int(devices)
     if want > avail:
         warnings.warn(

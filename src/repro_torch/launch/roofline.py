@@ -13,8 +13,10 @@ parses collective bytes out of the compiled HLO (its
 ``collective_bytes``); PyTorch compiles no SPMD program, so there is no
 HLO here and that parser is not ported. :func:`plan_collectives`
 counts them from the plan instead: tensor-parallel all-reduces of the
-residual stream, FSDP gathers and gradient reductions, data-parallel
-gradient all-reduces, the moe's all-to-alls and the decode cache's
+residual stream, the vocab-parallel embedding's and unembedding's
+all-reduces and the cross-entropy's reductions over a split vocab,
+FSDP gathers and gradient reductions, data-parallel gradient
+all-reduces, the moe's all-to-alls and the decode cache's
 sequence-parallel reduction, each at one device's bytes.
 """
 from __future__ import annotations
@@ -344,6 +346,35 @@ def plan_collectives(cfg: ModelConfig, shape: InputShape, plan, mesh
             out["all-gather"] += count * passes * x_bytes
         else:
             out["all-reduce"] += 2.0 * count * passes * x_bytes
+
+    # The vocabulary over "model" (Megatron's vocab-parallel embedding
+    # and column-parallel unembedding): the embedding's lookup gives
+    # partial rows, one all-reduce of (rows x T x D) a forward; its
+    # backward, a scatter-add into the vocab-split gradient, sends
+    # nothing, and no layer recomputes it. In training the unembedding's
+    # input gradient is a partial sum over the vocab, one all-reduce of
+    # the same size in the backward, and the cross-entropy reduces its
+    # max and its sum of exponentials over the split vocab, two
+    # all-reduces of (rows x T) float32. Under sequence parallelism each
+    # (rows x T x D) all-reduce is a reduce-scatter and an all-gather,
+    # as the blocks' are.
+    if tp:
+        T = row_tokens(cfg, shape)
+        x_bytes = rows * T * D * act
+        embed_split = "model" in plans.entry_axes(p_sh[("embed",)].spec[0])
+        head_split = "model" in plans.entry_axes(
+            p_sh[("embed",)].spec[0] if cfg.tie_embeddings
+            else p_sh[("out_head",)].spec[1])
+        n = int(embed_split) + int(train and head_split)
+        o_spec = resolve((rows, T, D), constraints.BATCH, constraints.SEQ,
+                         None)
+        if "model" in plans.entry_axes(o_spec[1]):
+            out["reduce-scatter"] += n * x_bytes
+            out["all-gather"] += n * x_bytes
+        else:
+            out["all-reduce"] += 2.0 * n * x_bytes
+        if train and head_split:
+            out["all-reduce"] += 2.0 * 2 * rows * T * 4
 
     # Flash-decode over a sequence-split cache (cache_seq over "model"):
     # each device attends its slice of the keys, and one all-reduce a

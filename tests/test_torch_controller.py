@@ -28,19 +28,9 @@ from repro_torch import configs as tconfigs
 from repro_torch import trainer as ttrainer
 from repro_torch.core import controller as tcontroller
 from repro_torch.data import make_batch
+from torch_threads import one_thread  # noqa: F401
 
 ARCH = "stablelm-12b"
-
-
-@pytest.fixture(autouse=True)
-def _one_thread():
-    """Smoke-size steps are hundreds of tiny operations; under the test
-    runner's parallel workers, each op's thread pool fights the other
-    workers' for the cores and a step slows down tens of times."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def drop_ckpt(events):

@@ -342,7 +342,11 @@ def test_plan_collectives_tp_train_by_hand():
     # wv, wo (H/4), w_up, w_gate, w_down (F/4)
     leaves = (2 * 64 * 64 * 2 + 64 * 2 + 2 * (2 * 64 * 2)
               + 4 * (2 * 64 * 1 * 16 * 2) + 3 * (2 * 64 * 32 * 2))
-    assert c["all-reduce"] == tp + 2.0 * leaves
+    # the vocabulary over model: the embedding's forward all-reduce and
+    # the unembedding's input gradient (rows x S x D, bf16), the
+    # cross-entropy's max and sum (rows x S, f32)
+    vocab = 2.0 * 2 * x + 2.0 * 2 * (2 * 8 * 4)
+    assert c["all-reduce"] == tp + 2.0 * leaves + vocab
     assert c["all-gather"] == c["reduce-scatter"] == c["all-to-all"] == 0
     assert c["total"] == c["all-reduce"]
 
@@ -418,9 +422,13 @@ def test_plan_collectives_tp_sp_and_decode_by_hand():
     top = 2 * (64 * 64 * 2) + 64 * 2
     stacked = 2 * (2 * 64 * 2) + 4 * (2 * 64 * 16 * 2) \
         + 3 * (2 * 64 * 32 * 2)
-    assert c["all-gather"] == sp + 16 * (2 * top + 3 * stacked)
-    assert c["reduce-scatter"] == sp + 16 * (top + stacked)
-    assert c["all-reduce"] == 0
+    # the vocab-parallel embedding's forward and the unembedding's
+    # backward: a reduce-scatter and an all-gather each under SP
+    vocab = 2 * (2 * 8 * 64 * 2)
+    assert c["all-gather"] == sp + vocab + 16 * (2 * top + 3 * stacked)
+    assert c["reduce-scatter"] == sp + vocab + 16 * (top + stacked)
+    # the cross-entropy's max and sum over the split vocab
+    assert c["all-reduce"] == 2.0 * 2 * (2 * 8 * 4)
     # decode: batch 4 over data (2 rows), 1 position; the cache's
     # sequence over model: one more all-reduce a layer of (rows, H, hd)
     cfg = tiny()
@@ -429,7 +437,9 @@ def test_plan_collectives_tp_sp_and_decode_by_hand():
     assert plan.batch_axes == ("data",)
     tp = 2.0 * 4 * 1 * (2 * 1 * 64 * 2)
     cache = 2.0 * 2 * 2 * 4 * 16 * 2
-    assert c["all-reduce"] == tp + cache and c["total"] == tp + cache
+    embed = 2.0 * (2 * 1 * 64 * 2)
+    assert c["all-reduce"] == tp + cache + embed
+    assert c["total"] == c["all-reduce"]
 
 
 def test_plan_collectives_moe_all_to_all_by_hand():
@@ -442,8 +452,9 @@ def test_plan_collectives_moe_all_to_all_by_hand():
     C = moe.capacity(cfg, 8)
     assert C == 8                          # ceil(8*2/4*1.25) = 5 -> 8
     assert c["all-to-all"] == 2 * 2 * 1 * 4 * C * 64 * 2
-    # the attention blocks' all-reduce (1 row of 8 positions)
-    assert c["all-reduce"] == 2.0 * 2 * (1 * 8 * 64 * 2)
+    # the attention blocks' all-reduce (1 row of 8 positions) and the
+    # vocab-parallel embedding's
+    assert c["all-reduce"] == 2.0 * (2 + 1) * (1 * 8 * 64 * 2)
     # 6 experts do not divide a model axis of 8, so they stay whole and
     # the expert layer is tensor-parallel over d_expert instead
     m8 = tmesh.Mesh(("data", "model"), (1, 8))
@@ -453,17 +464,47 @@ def test_plan_collectives_moe_all_to_all_by_hand():
     _, plan, c = collectives(cfg6, tconfigs.InputShape("p", 8, 2,
                                                        "prefill"), m8)
     assert c["all-to-all"] == 0
-    assert c["all-reduce"] == 2.0 * 2 * 2 * (2 * 8 * 64 * 2)
+    assert c["all-reduce"] == 2.0 * (2 * 2 + 1) * (2 * 8 * 64 * 2)
+
+
+def test_plan_collectives_vocab_terms_by_hand():
+    """Each collective of a split vocabulary, alone: the tp plan's
+    prefill minus its blocks is the embedding's forward all-reduce; its
+    train step adds the unembedding's input-gradient all-reduce (tied
+    or not) and the cross-entropy's two float32 reductions. A vocab
+    that does not divide the model axis sends none (the baseline here);
+    ZeRO-3 sends none either (``test_plan_collectives_fsdp_train_by_hand``
+    counts its whole total)."""
+    def vocab_terms(cfg, shape, mesh=MESH_2x4):
+        _, plan, c = collectives(cfg, shape, mesh)
+        blocks = troofline.plan_collectives(
+            cfg.replace(vocab=255), shape, plan, mesh)
+        return {k: c[k] - blocks[k] for k in c}
+
+    x = 2 * 8 * 64 * 2                       # 2 rows x 8 x D, bf16
+    got = vocab_terms(tiny(), tconfigs.InputShape("p", 8, 4, "prefill"))
+    assert got["all-reduce"] == 2.0 * x == got["total"]
+    train = tconfigs.InputShape("t", 8, 4, "train")
+    for cfg in (tiny(), tiny(tie_embeddings=True)):
+        got = vocab_terms(cfg, train)
+        # all-reduces of 255 x 64 gradients are in both counts: only the
+        # vocab leaves' gradient shards differ, so compare the new terms
+        ce = 2.0 * 2 * (2 * 8 * 4)
+        leaves = 2.0 * (1 if cfg.tie_embeddings else 2) * 64 * 2 * (
+            64 - 255)
+        assert got["all-reduce"] == 2.0 * 2 * x + ce + leaves
 
 
 def test_plan_collectives_match_dtensor_tensor_parallel_layer():
     """One dense layer's forward under the tp plan on (16, 16) against
     what DTensor sends for the same layer (Megatron column-parallel
-    q/k/v/up/gate, row-parallel o/down) through a fake process group:
-    the same all-reduces, in count and bytes."""
+    q/k/v/up/gate, row-parallel o/down) behind a vocab-parallel
+    embedding through a fake process group: the same all-reduces, in
+    count and bytes."""
     import torch.distributed as dist
     from torch import nn
     from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import Replicate
     from torch.distributed.tensor.debug import CommDebugMode
     from torch.distributed.tensor.parallel import (ColwiseParallel,
                                                    RowwiseParallel,
@@ -471,8 +512,9 @@ def test_plan_collectives_match_dtensor_tensor_parallel_layer():
     from torch.testing._internal.distributed.fake_pg import FakeStore
     from torch.utils._python_dispatch import TorchDispatchMode
 
-    D, H, hd, F, rows, S = 256, 16, 16, 512, 2, 64
-    cfg = tiny(n_layers=1, d_model=D, n_heads=H, n_kv_heads=H, d_ff=F)
+    D, H, hd, F, rows, S, V = 256, 16, 16, 512, 2, 64, 256
+    cfg = tiny(n_layers=1, d_model=D, n_heads=H, n_kv_heads=H, d_ff=F,
+               vocab=V)
     shape = tconfigs.InputShape("p", S, rows * 16, "prefill")
     mesh = tmesh.make_production_mesh()
     plan = tplans.arch_plan(cfg, shape, mesh)
@@ -482,13 +524,15 @@ def test_plan_collectives_match_dtensor_tensor_parallel_layer():
     class Layer(nn.Module):
         def __init__(self):
             super().__init__()
+            self.embed = nn.Embedding(V, D)
             for n, (i, o) in dict(wq=(D, H * hd), wk=(D, H * hd),
                                   wv=(D, H * hd), wo=(H * hd, D),
                                   up=(D, F), gate=(D, F),
                                   down=(F, D)).items():
                 setattr(self, n, nn.Linear(i, o, bias=False))
 
-        def forward(self, x):
+        def forward(self, tokens):
+            x = self.embed(tokens)
             B = x.shape[0]
             q, k, v = (w(x).reshape(B, S, -1, hd).transpose(1, 2)
                        for w in (self.wq, self.wk, self.wv))
@@ -515,18 +559,19 @@ def test_plan_collectives_match_dtensor_tensor_parallel_layer():
                                  mesh_dim_names=("data", "model"))
         layer = Layer().to(torch.bfloat16)
         parallelize_module(layer, dmesh["model"], {
+            "embed": RowwiseParallel(input_layouts=Replicate()),
             "wq": ColwiseParallel(), "wk": ColwiseParallel(),
             "wv": ColwiseParallel(), "wo": RowwiseParallel(),
             "up": ColwiseParallel(), "gate": ColwiseParallel(),
             "down": RowwiseParallel()})
-        x = torch.zeros(rows, S, D, dtype=torch.bfloat16)
+        tokens = torch.zeros(rows, S, dtype=torch.int64)
         with CommDebugMode() as comm, AllReduces() as seen:
-            layer(x)
+            layer(tokens)
     finally:
         dist.destroy_process_group()
     counts = {str(k): v for k, v in comm.get_comm_counts().items()}
-    assert counts == {"c10d_functional.all_reduce": 2}
-    assert seen.bytes == [rows * S * D * 2] * 2
+    assert counts == {"c10d_functional.all_reduce": 3}
+    assert seen.bytes == [rows * S * D * 2] * 3
     assert want["all-reduce"] == 2.0 * sum(seen.bytes) == want["total"]
 
 
@@ -696,7 +741,78 @@ def test_dry_run_in_process_at_full_width(arch, shape_name):
     m = res["memory"]
     assert m["peak_gb"] == pytest.approx(
         m["argument_gb"] + m["output_gb"] - m["alias_gb"] + m["temp_gb"])
-    assert m["temp_gb_upper_bound"]          # the plan splits "model"
+    # no consistent local config: mamba2's decode, internvl2's GQA with
+    # 8 whole kv heads beside 16 / 16 query heads
+    assert m["temp_gb_upper_bound"]
+
+
+@pytest.mark.parametrize("kind", ["prefill", "train"])
+def test_meta_step_runs_at_local_widths_by_hand(kind):
+    """Tensor parallelism over a model axis of 4 (MHA: every head, d_ff
+    and the vocab divide it): the dry-run's step is the one of the
+    config divided by hand, at one device's rows on one device, in temp
+    bytes and FLOPs, and it is exact; the FLOPs also by hand."""
+    cfg = tiny()
+    shape = tconfigs.InputShape("x", 8, 4, kind)
+    plan = tplans.arch_plan(cfg, shape, MESH_2x4)
+    loc = tiny(n_heads=1, n_kv_heads=1, head_dim=16, d_ff=32, vocab=64)
+    assert dryrun.local_config(cfg, shape, plan, MESH_2x4) == (loc, True)
+    got = dryrun.meta_step(cfg, shape, plan, MESH_2x4, AdamWConfig())
+    one = tmesh.Mesh(("data", "model"), (1, 1))
+    half = tconfigs.InputShape("x", 8, 2, kind)     # 2 rows a device
+    want = dryrun.meta_step(loc, half, tplans.arch_plan(loc, half, one),
+                            one, AdamWConfig())
+    assert got["exact"] and want["exact"]
+    assert got["temp_bytes"] == want["temp_bytes"]
+    assert got["counted_flops"] == want["counted_flops"]
+    res = dryrun.dry_run(cfg, shape, MESH_2x4)
+    assert not res["memory"]["temp_gb_upper_bound"]
+    assert dryrun.peak_mark(res["memory"]) == "="
+    if kind == "prefill":
+        # per layer q, k, v, o (64 -> 1 head of 16) and up, gate, down
+        # (64 -> 32) on 2 x 8 tokens; the last position's unembedding
+        # (64 -> 64); the flash kernel's causal pairs (36 a row)
+        layer = 4 * 2 * 16 * 64 * 16 + 3 * 2 * 16 * 64 * 32 \
+            + 4 * 2 * 1 * 16 * 36
+        assert got["counted_flops"] == 2 * layer + 2 * 2 * 64 * 64
+
+
+def test_gqa_with_whole_kv_heads_keeps_the_upper_bound():
+    """4 query heads over 2 kv heads on a model axis of 4: the kv heads
+    do not divide it, so one query head a device groups onto no kv
+    head. The local run keeps both kv heads and 2 query heads (the
+    fewest that group), d_ff and the vocab split, and stays flagged."""
+    cfg = tiny(n_heads=4, n_kv_heads=2)
+    shape = tconfigs.InputShape("p", 8, 4, "prefill")
+    plan = tplans.arch_plan(cfg, shape, MESH_2x4)
+    loc, exact = dryrun.local_config(cfg, shape, plan, MESH_2x4)
+    assert not exact
+    assert (loc.n_heads, loc.n_kv_heads, loc.head_dim, loc.d_ff,
+            loc.vocab) == (2, 2, 16, 32, 64)
+    res = dryrun.dry_run(cfg, shape, MESH_2x4)
+    assert res["memory"]["temp_gb_upper_bound"]
+    assert dryrun.peak_mark(res["memory"]) == "<="
+
+
+def test_cli_prints_both_flags(monkeypatch, tmp_path, capsys):
+    """A plan that is both FSDP (command-r-35b's weights over data) and
+    model-split with GQA whole kv heads carries both flags, and the
+    CLI's line states both."""
+    cfg = tiny(name="command-r-35b", n_heads=4, n_kv_heads=2)
+    res = dryrun.dry_run(cfg, tconfigs.InputShape("t", 8, 4, "train"),
+                         MESH_2x4)
+    m = res["memory"]
+    assert m["temp_gb_upper_bound"] and m["fsdp_gather_gb"] > 0
+    assert dryrun.peak_mark(m) == "<=~"
+    monkeypatch.setattr(dryrun, "lower_one", lambda *a, **k: res)
+    dryrun.main(["--arch", "command-r-35b", "--shape", "train_4k",
+                 "--out", str(tmp_path)])
+    line = capsys.readouterr().out.splitlines()[0]
+    assert line.startswith("OK    command-r-35b__train_4k__single")
+    assert f"peak<=~{m['peak_gb']:.1f}GB" in line
+    with pytest.raises(SystemExit):
+        dryrun.main(["--help"])
+    assert "peak<=~X (both)" in " ".join(capsys.readouterr().out.split())
 
 
 def test_train_state_argument_bytes_equal_the_state():

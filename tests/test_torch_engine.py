@@ -22,6 +22,7 @@ from repro_torch import api as tapi
 from repro_torch.configs import cluster as tcluster
 from repro_torch.core import sim_torch
 from repro_torch.kernels import ops as tops
+from torch_threads import one_thread  # noqa: F401
 
 NODES, N_JOBS, SEED, P = 8, 256, 2, 2
 EXACT = ["fifo", "fitgpp", "minsize", "lrtp", "srtp"]
@@ -312,3 +313,38 @@ def test_permuted_rows_with_akey_equal_the_ordered_run(policy, mode):
         if f == "victim_of":
             x = np.where(x >= 0, perm[np.maximum(x, 0)], x)
         np.testing.assert_array_equal(x, want[f], err_msg=f)
+
+
+# draws that decide: RAND's ranks (22 selections here), a score
+# policy's width-1 fallback (P = 1 on seed 3: 14 fallbacks) and
+# gang-heavy under fitgpp at P = 2 (121 over-cap signals, one drawn
+# fallback)
+DRAWN = [("rand", "paper-synthetic", 8, 256, 2, 3),
+         ("fitgpp", "paper-synthetic", 8, 256, 1, 3),
+         ("fitgpp", "gang-heavy", 12, 192, 2, 0)]
+
+
+@pytest.mark.parametrize("policy,scenario,nodes,n_jobs,P,seed", DRAWN)
+def test_draws_equal_batched_engine_at_b1(one_thread, policy, scenario,
+                                          nodes, n_jobs, P, seed):
+    """The single-trial engine draws as the batched engine does: at
+    B = 1 the two States are equal field for field, the draw count
+    included, where draws decide."""
+    from repro_torch import scenarios as tscenarios
+    from repro_torch.core import sim_batch
+    from repro_torch.core.sweep_fabric import stack_jobsets
+    cfg = tapi.make_config(policy, n_jobs=n_jobs, n_nodes=nodes, seed=seed,
+                           P=P)
+    js = tscenarios.build(scenario, cfg)
+    st = sim_torch.state_to_numpy(sim_torch.run(
+        cfg, sim_torch.jobs_from_jobset(js, "cpu"), seed))
+    stats = {}
+    bst = sim_batch.run(cfg, stack_jobsets([js]), cfg.s, P, seed,
+                        stats=stats)
+    lane = sim_batch.lane(sim_batch.state_to_numpy(bst), 0)
+    assert stats["lane_drawn"][0] > 0 and st["draws"] > 0
+    if policy != "rand":
+        assert st["fallback_count"] > 0
+    assert sorted(lane) == sorted(k for k in st
+                                  if k not in ("ev_buf", "ev_n"))
+    assert [k for k in lane if not np.array_equal(lane[k], st[k])] == []

@@ -29,6 +29,7 @@ from repro.core.types import JobSet
 from repro_torch import api as tapi
 from repro_torch.configs import cluster as tcluster
 from repro_torch.core import sim_torch
+from torch_threads import one_thread  # noqa: F401
 
 GANG_SCENARIOS = ("gang-heavy", "gang-trace-mix", "philly-sample",
                   "pai-sample")

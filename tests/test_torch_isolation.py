@@ -1,6 +1,7 @@
 """The port stands alone: ``repro_torch`` and ``chip_smoke.py`` import
 neither JAX nor anything of the JAX package ``repro`` (nor, by their
-sources, do ``kernel_ab.py`` and ``lru_scan_ablation.py``), and the port's
+sources, do ``kernel_ab.py``, ``lru_scan_ablation.py`` and
+``examples_card.py``), and the port's
 entry points refuse to fall back to the CPU on their own."""
 import os
 import pkgutil
@@ -53,7 +54,8 @@ def _sources():
     on the card."""
     return sorted(PKG.rglob("*.py")) + [
         ROOT / name for name in ("chip_smoke.py", "kernel_ab.py",
-                                 "lru_scan_ablation.py")]
+                                 "lru_scan_ablation.py",
+                                 "examples_card.py")]
 
 
 def test_imports_with_jax_and_repro_blocked():
@@ -129,6 +131,17 @@ def test_module_walk_covers_every_model_family():
     assert {f"repro_torch.configs.{m}" for m in (
         "qwen3_moe_30b_a3b", "mixtral_8x22b", "whisper_large_v3",
         "internvl2_2b")} <= names
+
+
+def test_module_walk_covers_the_examples():
+    """The blocked-import walk reaches the examples subpackage and each
+    of its seven modules (importing one runs nothing)."""
+    names = {m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                                   "repro_torch.")}
+    assert {f"repro_torch.examples.{m}" for m in (
+        "cluster_simulation", "trace_replay", "stream_replay",
+        "distributed_sweep", "quickstart", "preemptible_training",
+        "train_100m")} | {"repro_torch.examples"} <= names
 
 
 def test_source_scan_finds_no_jax_or_repro_import():

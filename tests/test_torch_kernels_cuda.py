@@ -558,7 +558,7 @@ def test_gang_backfill_engine_kernel_path_equals_plain_path(cuda_device,
                                                             policy):
     """gang-heavy with backfill on 16 nodes (gangs preempt, fitgpp's
     gang scores come from the kernel's pass): the whole final State of
-    the kernel path equals the plain path's, generator included."""
+    the kernel path equals the plain path's, draw count included."""
     from repro_torch import api, scenarios
     from repro_torch.core import sim_torch
     cfg = api.make_config(policy, n_jobs=192, n_nodes=16, seed=0, P=4,
@@ -572,6 +572,31 @@ def test_gang_backfill_engine_kernel_path_equals_plain_path(cuda_device,
     monkeypatch.setattr(tops, "_FORCE_PLAIN", True)
     plain = sim_torch.state_to_numpy(sim_torch.run(cfg, jobs, 0))
     assert sim_torch.state_diff_fields(kern, plain) == []
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("policy,scenario,nodes,n_jobs,P,seed", [
+    ("rand", "paper-synthetic", 8, 256, 2, 3),
+    ("fitgpp", "gang-heavy", 12, 192, 2, 0),
+    ("rand", "paper-synthetic", 8, 128, 2, 3),
+    ("fitgpp", "gang-heavy", 12, 96, 2, 5)])
+def test_single_trial_draws_card_equal_cpu(cuda_device, policy, scenario,
+                                           nodes, n_jobs, P, seed):
+    """Where draws decide (RAND's ranks; gang-heavy's over-cap signals
+    and a drawn fallback under fitgpp), the single-trial engine on the
+    card gives the CPU's final State field for field, the draw count
+    included: its draws are counter-based, not a device generator's."""
+    from repro_torch import api, scenarios
+    from repro_torch.core import sim_torch
+    cfg = api.make_config(policy, n_jobs=n_jobs, n_nodes=nodes, seed=seed,
+                          P=P)
+    js = scenarios.build(scenario, cfg)
+    card, cpu = (sim_torch.state_to_numpy(sim_torch.run(
+        cfg, sim_torch.jobs_from_jobset(js, dev), seed))
+        for dev in (cuda_device, "cpu"))
+    assert cpu["draws"] > 0
+    assert policy == "rand" or cpu["fallback_count"] > 0
+    assert sim_torch.state_diff_fields(card, cpu) == []
 
 
 @pytest.mark.cuda

@@ -13,8 +13,9 @@ against ``build`` and the trace readers. Beyond those, the port's
 ``StreamResult`` and its remapped events equal the JAX ``StreamEngine``'s
 field for field and event for event at the same capacity (the slot
 placement is deterministic), the sources and ``run_stream`` equal
-JAX's. The compared runs draw no random fallback (score policies) and
-use no RAND, whose draws differ between the engines."""
+JAX's. The runs compared with JAX draw no random fallback (score
+policies) and use no RAND, whose draws differ between the engines; the
+parity window against the port's own monolithic run holds with draws."""
 import dataclasses
 
 import numpy as np
@@ -33,6 +34,7 @@ from repro_torch.core import workload as tworkload
 from repro_torch.core.types import JobSet
 from repro_torch.obs import export, ring, schema, timeseries
 from repro_torch.scenarios import traces as ttraces
+from torch_threads import one_thread  # noqa: F401
 
 pytestmark = pytest.mark.filterwarnings(
     "ignore:.*shard_map.*:DeprecationWarning")
@@ -90,6 +92,23 @@ def test_parity_window(policy, mode):
     assert tstream.verify_prefix_parity(
         _cfg(policy), n_jobs=400, capacity=96, chunk=64, time_mode=mode,
         device=CPU) == []
+
+
+@pytest.mark.parametrize("policy,load,capacity", [("rand", 0.5, 96),
+                                                  ("fitgpp", 0.9, 160)])
+def test_parity_window_with_draws(policy, load, capacity):
+    """Draws hash each job's global sequence number, not its slot: RAND
+    and a score policy's random fallback stream as they run
+    monolithically, draw count and fallback count included."""
+    cfg = dataclasses.replace(_cfg(policy, n_jobs=400, load=load),
+                              max_preemptions=1)
+    res = tstream.StreamEngine(cfg, _src(cfg, 400), capacity=capacity,
+                               device=CPU).run()
+    assert res.final_draws > 0 and res.n_spilled == 0
+    if policy == "fitgpp":
+        assert res.fallback_count > 0
+    assert tstream.verify_prefix_parity(
+        cfg, n_jobs=400, capacity=capacity, chunk=64, device=CPU) == []
 
 
 @pytest.mark.slow

@@ -36,6 +36,7 @@ from repro_torch.core.types import DONE
 from repro_torch.kernels import ops as tops
 from repro_torch.launch import mesh as tmesh
 from repro_torch.sharding import trials as tsharding
+from torch_threads import one_thread  # noqa: F401
 
 pytestmark = pytest.mark.filterwarnings(
     "ignore:.*shard_map.*:DeprecationWarning")
@@ -462,18 +463,6 @@ def _same_result(a, b):
         assert np.array_equal(a.stats[k], b.stats[k], equal_nan=True), k
     for k in ("lane_iterations", "lane_acting", "lane_drawn"):
         assert np.array_equal(a.engine_stats[k], b.engine_stats[k]), k
-
-
-@pytest.fixture
-def one_thread():
-    """torch on one thread here and, through ``ShardPool``'s rule, in
-    each worker: the engine's tiny ops under the test runner's parallel
-    workers otherwise fight them for the cores (a sharded run about 3x
-    slower beside six busy processes on eight cores)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def test_sharded_run_table_equals_one_device(one_thread):

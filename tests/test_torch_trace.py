@@ -24,6 +24,7 @@ from repro_torch.configs import cluster as tcluster
 from repro_torch.core import metrics, sim_torch
 from repro_torch.kernels import ops
 from repro_torch.obs import schema, timeseries
+from torch_threads import one_thread  # noqa: F401
 
 SCORE = ("fitgpp", "minsize")
 # (scenario, policy, mode) at the paper's 84 nodes, 96 jobs

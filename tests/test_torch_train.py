@@ -45,19 +45,9 @@ from repro_torch.checkpoint import (estimate_grace_period, load_pytree,
 from repro_torch.launch import train as ttrain
 from repro_torch.models import convert, dense
 from repro_torch.optim import adamw as tadamw
+from torch_threads import one_thread  # noqa: F401
 
 ARCHS = ["stablelm-12b", "command-r-35b", "nemotron-4-340b"]
-
-
-@pytest.fixture(autouse=True)
-def _one_thread():
-    """Smoke-size steps are hundreds of tiny operations; under the test
-    runner's parallel workers, each op's thread pool fights the other
-    workers' for the cores and a step slows down tens of times."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def np_tree(t):
